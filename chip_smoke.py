@@ -10,14 +10,19 @@
    against its plain PyTorch version on the same inputs; the decoders must
    be bit-equal, the pair-HMM passes bit-equal or within 1e-6.  Times both
    with CUDA events.
-4. Slice phase: resets the launch counts, runs `align_and_fold(...,
-   device="cuda")` on RF00005 (10 tRNAs) and RF00017 (10 SRP RNAs) from
-   `tests/data/`, and checks that every kernel was launched, that every
-   output row is its input sequence with gaps, and that each guide-tree
-   topology equals the TPU snapshot's (`tests/snapshots/*_default_tpu.txt`
-   line 1; the tree does not depend on the consensus mix, which this slice
-   leaves out).  Reports the largest tree-score difference and the RF00017
-   similarity matrix against the recorded one.
+4. Slice phase: resets the launch counts, runs DAFS's default path,
+   `align_and_fold(..., device="cuda")` with the RNAalifold consensus mixed
+   into every merge and the final structure, on RF00005 (10 tRNAs) and
+   RF00017 (10 SRP RNAs) from `tests/data/`, and checks that every kernel
+   was launched, that every output row is its input sequence with gaps, and
+   that each guide-tree topology equals the TPU snapshot's
+   (`tests/snapshots/*_default_tpu.txt` line 1).  RF00005's `SS_cons` and
+   gapped rows must equal its snapshot's; RF00017's merges mostly stop at
+   the 600-iteration cap without converging, so for it the agreeing columns
+   are counted and printed.  Prints the phase split and the consensus calls
+   (count, seconds, slowest call, retry-ladder attempts), the largest
+   tree-score difference, and the RF00017 similarity matrix against the
+   recorded one.
 5. Prints the kernel table as one JSON line, then `{"ok": true, ...}` last.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
@@ -103,17 +108,17 @@ def nussinov_inputs(rng, B, L, dev):
     return torch.from_numpy(sm).to(dev), torch.from_numpy(lens).to(dev)
 
 
-def nw_inputs(rng, B, L, dev):
+def nw_inputs(rng, B, L1, L2, dev):
     import torch
 
     from dafs_tpu_torch.ops import nw
 
     th = np.float32(0.01)
-    sm = np.full((B, L, L), -th, np.float32)
-    envf = np.zeros((B, L + 1), np.int32)
-    envl = np.full((B, L + 1), L, np.int32)
-    l1 = rng.integers(L - 30, L + 1, size=B).astype(np.int32)
-    l2 = rng.integers(L - 30, L + 1, size=B).astype(np.int32)
+    sm = np.full((B, L1, L2), -th, np.float32)
+    envf = np.zeros((B, L1 + 1), np.int32)
+    envl = np.full((B, L1 + 1), L2, np.int32)
+    l1 = rng.integers(L1 - 40, L1 + 1, size=B).astype(np.int32)
+    l2 = rng.integers(L2 - 40, L2 + 1, size=B).astype(np.int32)
     for b in range(B):
         n1, n2 = int(l1[b]), int(l2[b])
         p = np.zeros((n1, n2), np.float32)
@@ -176,7 +181,9 @@ def kernel_phase(dev):
             record(name, "cuda", "dafs_tpu_torch/csrc/pairhmm.cu", replaces,
                    err, ms, plain_ms)
 
-    for L in (96, 352):
+    # the padded lengths of the main path: RF00005's merges, RF00017's
+    # merges, and RF00017's final structure (383 columns)
+    for L in (96, 352, 384):
         sm, lens = nussinov_inputs(rng, 8, L, dev)
         got = nussinov_cuda.decode(sm, lens)
         want = nussinov.decode_plain(sm, lens)
@@ -192,8 +199,9 @@ def kernel_phase(dev):
         record("nussinov", "cuda", "dafs_tpu_torch/csrc/nussinov.cu",
                "dafs_tpu/ops/nussinov_pallas.py:76", err, ms, plain_ms)
 
-    for L in (96, 320):
-        args = nw_inputs(rng, 4, L, dev)
+    # square merges, and RF00017's last merge: 337 against 317 columns
+    for L1, L2 in ((96, 96), (320, 320), (352, 320)):
+        args = nw_inputs(rng, 4, L1, L2, dev)
         got = nw_cuda.decode(*args)
         want = nw.decode_plain(*args)
         torch.cuda.synchronize()
@@ -201,10 +209,10 @@ def kernel_phase(dev):
         err = max(max_abs(g, w) for g, w in zip(got, want))
         ms = cuda_ms(lambda: nw_cuda.decode(*args), 10)
         plain_ms = cuda_ms(lambda: nw.decode_plain(*args), 1)
-        print(f"kernel nw B=4 L={L}: bit-equal={exact} kernel_ms={ms:.4f} "
+        print(f"kernel nw B=4 L1={L1} L2={L2}: bit-equal={exact} kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f}")
         if not exact:
-            raise AssertionError(f"nw L={L}: kernel differs from plain version")
+            raise AssertionError(f"nw {L1}x{L2}: kernel differs from plain version")
         record("nw", "cuda", "dafs_tpu_torch/csrc/nw.cu",
                "dafs_tpu/ops/nw_pallas.py:37", err, ms, plain_ms)
     return rows
@@ -233,6 +241,35 @@ def check_rows(res, fa):
             raise AssertionError(f"row {n} is not its input sequence with gaps")
 
 
+def read_snapshot(name):
+    """(tree, SS_cons, names, rows) of a recorded TPU output."""
+    with open(os.path.join(SNAP, name)) as fh:
+        lines = fh.read().splitlines()
+    return lines[0].strip(), lines[2], [l[2:] for l in lines[3::2]], lines[4::2]
+
+
+def consensus_summary(name, calls):
+    ali = [c for c in calls if c["route"] == "alifold"]
+    slow = max(calls, key=lambda c: c["seconds"])
+    per_call = "; ".join(
+        f"({c['ns']}, {c['n']}) {c['route']} {c['seconds'] * 1e3:.1f}ms"
+        + (f" x{c['attempts']}" if c["attempts"] else "")
+        for c in calls
+    )
+    print(f"{name} consensus: {len(calls)} calls ({len(ali)} alifold, "
+          f"{len(calls) - len(ali)} single-sequence McCaskill), "
+          f"{sum(c['seconds'] for c in calls):.3f}s in all; slowest "
+          f"{slow['seconds']:.3f}s at (NS, n, padded L) = ({slow['ns']}, {slow['n']}, "
+          f"{-(-slow['n'] // 32) * 32}); "
+          f"retry-ladder attempts {sum(c['attempts'] for c in ali)} over "
+          f"{len(ali)} alifold calls")
+    print(f"{name} consensus calls (NS, n): {per_call}")
+
+
+def columns_agreeing(a, b):
+    return sum(x == y for x, y in zip(a, b)), max(len(a), len(b))
+
+
 def slice_phase(dev):
     """Returns the launch count of every kernel over both runs."""
     import torch
@@ -251,15 +288,26 @@ def slice_phase(dev):
         wall = time.perf_counter() - t0
         phases = ", ".join(f"{k} {v:.3f}s" for k, v in res.phase_seconds.items())
         print(f"slice {fa_name}: {wall:.3f}s wall; {phases}")
+        consensus_summary(fa_name, res.consensus_calls)
         check_rows(res, fa)
-        with open(os.path.join(SNAP, snap_name)) as fh:
-            snap = fh.readline().strip()
+        snap, snap_ss, snap_names, snap_rows = read_snapshot(snap_name)
         if NUM.sub("#", res.tree) != NUM.sub("#", snap):
             raise AssertionError(f"{fa_name} tree topology differs:\n{res.tree}\n{snap}")
         digits = max(abs(float(a) - float(b)) for a, b in
                      zip(NUM.findall(res.tree), NUM.findall(snap)))
         print(f"{fa_name} tree topology equals the TPU snapshot; largest score "
               f"difference {digits!r}; SS_cons {res.ss_cons}")
+        if res.names != snap_names:
+            raise AssertionError(f"{fa_name}: names differ from the snapshot's")
+        ss_ok, ss_all = columns_agreeing(res.ss_cons, snap_ss)
+        row_ok = [columns_agreeing(r, w) for r, w in zip(res.rows, snap_rows)]
+        print(f"{fa_name} against the TPU snapshot: SS_cons {ss_ok} of {ss_all} "
+              f"columns agree (lengths {len(res.ss_cons)} and {len(snap_ss)}); rows "
+              f"{sum(a for a, _ in row_ok)} of {sum(b for _, b in row_ok)} columns "
+              f"agree, {sum(r == w for r, w in zip(res.rows, snap_rows))} of "
+              f"{len(snap_rows)} rows identical")
+        if fa_name.startswith("RF00005") and (res.ss_cons != snap_ss or res.rows != snap_rows):
+            raise AssertionError(f"{fa_name}: SS_cons or rows differ from the TPU snapshot")
         if fa_name.startswith("RF00017"):
             sim = np.load(os.path.join(SNAP, "rf00017_replay.npz"))["sim"]
             print(f"RF00017 similarity: max |port - recorded| = "

@@ -7,11 +7,11 @@
 '((((....))))'
 
 The port of `dafs_tpu.align_and_fold` for the slice that is ported so far:
-the default ProbCons + BL* McCaskill path, run without the RNAalifold
-consensus mix (`use_alifold=False`, which also drops the mix from the final
-structure; see `pipeline.Dafs`).  Keyword arguments override
-`pipeline.Options` fields; any option outside the slice raises
-`NotImplementedError` naming the ROADMAP item that brings it.
+DAFS's default path, ProbCons + BL* McCaskill with the RNAalifold consensus
+mixed into every merge and into the final structure.  `use_alifold=False`
+drops the mix from the merges only, as in the JAX package.  Keyword
+arguments override `pipeline.Options` fields; any option outside the slice
+raises `NotImplementedError` naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -32,9 +32,11 @@ class Result:
     names: list[str]     # sequence names, sorted by input order
     rows: list[str]      # gapped sequences, aligned columns
     score: float         # final joint objective value
-    # host wall seconds per pipeline phase, and the (N, N) similarity matrix
+    # host wall seconds per pipeline phase, the (N, N) similarity matrix, and
+    # one record per RNAalifold consensus call (`ops.alifold.Alifold.calls`)
     phase_seconds: dict = dataclasses.field(default_factory=dict)
     similarity: np.ndarray | None = None
+    consensus_calls: list = dataclasses.field(default_factory=list)
 
     def __str__(self) -> str:
         lines = [self.tree, ">SS_cons", self.ss_cons]
@@ -60,7 +62,7 @@ def align_and_fold(
     device="cuda",
     align_model: str = "ProbCons",
     fold_model: str = "Boltzmann",
-    use_alifold: bool = False,
+    use_alifold: bool = True,
     **options,
 ) -> Result:
     """Align and fold a set of RNA sequences on `device`.
@@ -71,24 +73,26 @@ def align_and_fold(
       names: optional names (defaults to seq1..seqN for raw strings).
       device: torch device; "cuda" (the default) raises when no card is
         present.
+      use_alifold: mix the RNAalifold consensus into every merge (the final
+        structure always mixes it in).
       **options: overrides for pipeline.Options fields (w, t_max, eta0, th_a,
         th_s, th_s1, w_pct_a, w_pct_s, ...).
     """
     from dafs_tpu_torch import pipeline
     from dafs_tpu_torch.models import align_models, fold_models
+    from dafs_tpu_torch.ops import alifold
     from dafs_tpu_torch.typedefs import CUTOFF
 
-    if use_alifold:
-        raise NotImplementedError(pipeline.NOT_PORTED["use_alifold"])
     if align_model != "ProbCons":
         raise NotImplementedError(pipeline.NOT_PORTED["align_model"])
     if fold_model != "Boltzmann":
         raise NotImplementedError(pipeline.NOT_PORTED["fold_model"])
-    opts = pipeline.Options(**options)
+    opts = dataclasses.replace(pipeline.Options(**options), use_alifold=use_alifold)
     d = pipeline.Dafs(
         align_models.ProbCons(opts.th_a),
         fold_models.RNAfold(True, CUTOFF),
         opts,
+        alifold_model=alifold.Alifold(0.0, bl=True),
         device=device,
     )
     d.run(_records(seqs_or_path, names))

@@ -1,13 +1,14 @@
 """dafs-compatible command line interface (src/dafs.cpp:1603-1779), port of
 `dafs_tpu/cli.py`.
 
-Usage: python -m dafs_tpu_torch.cli --no-alifold [--device cuda] FILE
+Usage: python -m dafs_tpu_torch.cli [--no-alifold] [--device cuda] FILE
 
-The option surface is the JAX CLI's, plus `--device`.  Only the ported
-slice runs: `--no-alifold` is required, and it drops the consensus mix from
-the merges AND from the final structure (the JAX CLI keeps it in the final
-structure).  Every other option outside the slice raises
-NotImplementedError naming the ROADMAP item that brings it.
+The option surface is the JAX CLI's, plus `--device`.  Without options it
+runs DAFS's default path.  `--no-alifold` drops the RNAalifold consensus
+mix from the progressive merges; the final structure mixes it in all the
+same, as in the JAX CLI and the reference (use_alifold1_ is always true).
+Every option outside the ported slice raises NotImplementedError naming
+the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -76,8 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "probabilities by 1/(gamma+1)")
     gf.add_argument("--no-alifold", action="store_true",
                     help="No use of RNAalifold for calculating base-pairing "
-                         "probabilities (required: the consensus mix is not "
-                         "ported yet)")
+                         "probabilities in the progressive merges (the final "
+                         "structure still mixes it in)")
     gf.add_argument("-T", "--fold-th1", type=str, default=None,
                     help="Threshold for base-pairing probabilities of the "
                          "conclusive common secondary structures")
@@ -163,6 +164,7 @@ def main(argv=None) -> int:
     from dafs_tpu_torch import pipeline
     from dafs_tpu_torch.fasta import load_fasta
     from dafs_tpu_torch.models import align_models, fold_models
+    from dafs_tpu_torch.ops import alifold
     from dafs_tpu_torch.typedefs import CUTOFF
     from dafs_tpu_torch.utils.log import set_verbosity
 
@@ -178,10 +180,15 @@ def main(argv=None) -> int:
     opts.check_slice()
     set_verbosity(args.verbose)
 
+    # The final decode always mixes in the consensus regardless of
+    # --no-alifold (src/dafs.cpp:81-82,1696), so the model is built
+    # unconditionally; --no-alifold only gates the merge steps.
+    bl = args.fold_model == "Boltzmann"
     d = pipeline.Dafs(
         align_models.ProbCons(args.align_th),
-        fold_models.RNAfold(args.fold_model == "Boltzmann", CUTOFF),
+        fold_models.RNAfold(bl, CUTOFF),
         opts,
+        alifold_model=alifold.Alifold(0.0, bl=bl),
         device=args.device,
     )
     sys.stdout.write(d.run(load_fasta(args.input)))

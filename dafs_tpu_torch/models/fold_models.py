@@ -17,17 +17,23 @@ class FoldModel:
     def __init__(self, th: float):
         self.th = th
 
-    def batch_bp_posteriors(self, seqs, device) -> list[np.ndarray]:
+    def batch_bp_posteriors(self, seqs, device, th=None) -> list[np.ndarray]:
+        """Posteriors with entries strictly greater than `th` kept (the
+        model's threshold by default)."""
         raise NotImplementedError
 
-    def all_seqs(self, fa: list[Fasta], device) -> np.ndarray:
-        """(N, L, L) padded tensor of BP posteriors (upper triangle)."""
+    def all_seqs(self, fa: list[Fasta], device, posts=None) -> np.ndarray:
+        """(N, L, L) padded tensor of BP posteriors (upper triangle).
+
+        posts: this model's posteriors of `fa` under a lower threshold; they
+        are cut to the model's threshold instead of folding again."""
         N = len(fa)
         L = max(len(f) for f in fa)
         bp = np.zeros((N, L, L), dtype=np.float32)
-        posts = self.batch_bp_posteriors([f.seq for f in fa], device)
+        if posts is None:
+            posts = self.batch_bp_posteriors([f.seq for f in fa], device)
         for i, p in enumerate(posts):
-            bp[i, : p.shape[0], : p.shape[1]] = p
+            bp[i, : p.shape[0], : p.shape[1]] = np.where(p > self.th, p, np.float32(0.0))
         return bp
 
 
@@ -40,7 +46,8 @@ class RNAfold(FoldModel):
         super().__init__(th)
         self.bl = bl
 
-    def batch_bp_posteriors(self, seqs, device):
+    def batch_bp_posteriors(self, seqs, device, th=None):
         from dafs_tpu_torch.ops import mccaskill
 
-        return mccaskill.batch_bp_posteriors_fast(seqs, self.th, device, bl=self.bl)
+        return mccaskill.batch_bp_posteriors_fast(
+            seqs, self.th if th is None else th, device, bl=self.bl)

@@ -2,14 +2,15 @@
 :1781-1889), port of `dafs_tpu/pipeline.py`.
 
 Host Python orchestrates (guide tree, projections, output); the numerics
-(posterior models, PCT products, similarity DP, the DD subgradient loop,
-final structure decode) run on `device`.
+(posterior models, PCT products, similarity DP, RNAalifold consensus, the
+DD subgradient loop, final structure decode) run on `device`.
 
-The ported slice is the default path without the RNAalifold consensus mix:
-it equals `dafs_tpu.pipeline.Dafs(ProbCons(th_a), RNAfold(True, CUTOFF),
-Options(use_alifold=False), alifold_model=None)`, which skips the mix in
-the merges AND in the final structure.  (The JAX CLI's `--no-alifold` keeps
-the mix in the final structure.)  Options outside the slice raise
+The ported slice is DAFS's default path: `Dafs(ProbCons(th_a),
+RNAfold(True, CUTOFF), Options(), alifold_model=Alifold(0.0, bl=True))`
+equals the JAX package's `Dafs` of the same arguments.  The consensus is
+mixed into every merge when `Options.use_alifold` is set, and into the
+final structure whenever an `alifold_model` is given (use_alifold1_ is
+always true in the reference).  Options outside the slice raise
 `NotImplementedError` naming the ROADMAP item that brings them.
 """
 
@@ -32,7 +33,6 @@ F = np.float32
 
 _QUEUE = "is not ported yet (ROADMAP.md, port queue: {})"
 NOT_PORTED = {
-    "use_alifold": "the RNAalifold consensus mix " + _QUEUE.format("alifold consensus"),
     "use_bp_update": "--bp-update " + _QUEUE.format("bp-update"),
     "use_bp_update1": "--bp-update1 " + _QUEUE.format("bp-update"),
     "fold_decoder": "--fold-decoder IPknot / --ipknot " + _QUEUE.format("IPknot"),
@@ -61,7 +61,7 @@ class Options:
     th_a: float = 0.01
     th_s: tuple = (0.2,)
     th_s1: tuple | None = None  # defaults to th_s
-    use_alifold: bool = False
+    use_alifold: bool = True
     use_bp_update: bool = False
     use_bp_update1: bool = False
     fold_decoder: str = "Nussinov"
@@ -74,7 +74,6 @@ class Options:
     def check_slice(self) -> None:
         """Raise NotImplementedError for any option outside the slice."""
         bad = {
-            "use_alifold": self.use_alifold,
             "use_bp_update": self.use_bp_update,
             "use_bp_update1": self.use_bp_update1,
             "fold_decoder": self.fold_decoder != "Nussinov",
@@ -92,13 +91,15 @@ class Options:
 
 
 class Dafs:
-    def __init__(self, align_model, fold_model, opts: Options, device="cuda"):
+    def __init__(self, align_model, fold_model, opts: Options, alifold_model=None,
+                 device="cuda"):
         opts.check_slice()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device is available")
         self.a_model = align_model
         self.s_model = fold_model
+        self.alifold = alifold_model
         self.o = opts
         if self.o.th_s1 is None:
             self.o.th_s1 = self.o.th_s
@@ -123,13 +124,21 @@ class Dafs:
                 s[ss[i]] = ")"
         return ss, "".join(s)
 
+    # -- averaging with alifold mix --------------------------------------
+
+    def _avg_bp(self, aln, use_alifold: bool) -> np.ndarray:
+        ali = None
+        if use_alifold and self.alifold is not None:
+            ali = self.alifold.consensus_bp(aln, self.fa, self.device)
+        return projection.average_basepairing_probability(self.bp, aln, ali)
+
     # -- merge ------------------------------------------------------------
 
     def _merge_inputs(self, aln1, aln2):
-        """Host prep of one merge: averaged p_x/p_y and p_z
-        (src/dafs.cpp:913-934), without the consensus mix."""
-        p_x = projection.average_basepairing_probability(self.bp, aln1)
-        p_y = projection.average_basepairing_probability(self.bp, aln2)
+        """Host prep of one merge: averaged p_x/p_y (with the consensus mix
+        when `use_alifold` is set) and p_z (src/dafs.cpp:913-934)."""
+        p_x = self._avg_bp(aln1, self.o.use_alifold)
+        p_y = self._avg_bp(aln2, self.o.use_alifold)
         p_z = projection.average_matching_probability(self.mp, aln1, aln2)
         return p_x, p_y, p_z
 
@@ -141,12 +150,14 @@ class Dafs:
         ss = np.where(xx == yy, xx, -1)
         return ss, aln
 
-    def _align(self, node: int):
+    def _align(self, node: int, phases: dict):
         """Progressive alignment under `node` (src/dafs.cpp:1499-1537).
 
         The reference recursion is strictly serial; here the merges whose
         children are both complete are solved together, one batched DD solve
-        per layer, with per-merge results equal to the serial path."""
+        per layer, with per-merge results equal to the serial path.  Adds the
+        host seconds of the input prep, the DD solves and the projections,
+        summed over layers, to `phases`."""
         state: dict[int, tuple] = {}
         internal = []
         stack = [node]
@@ -183,9 +194,13 @@ class Dafs:
                 ss, aln = self._merge_finish(x, y, z, aln1, aln2)
                 state[n] = (s, ss, aln)
                 pending.discard(n)
+            t3 = time.perf_counter()
+            for name, sec in (("merge avg+alifold", t1 - t0), ("merge DD", t2 - t1),
+                              ("merge project", t3 - t2)):
+                phases[name] = phases.get(name, 0.0) + sec
             logger.info(
-                "merge layer (%d merges): avg %.2fs, solve %.2fs, project %.2fs",
-                len(layer), t1 - t0, t2 - t1, time.perf_counter() - t2,
+                "merge layer (%d merges): avg+alifold %.2fs, solve %.2fs, project %.2fs",
+                len(layer), t1 - t0, t2 - t1, t3 - t2,
             )
         return state[node]
 
@@ -206,7 +221,17 @@ class Dafs:
         lens = [len(f) for f in fa]
         out = io.StringIO()
 
-        self.bp = self.s_model.all_seqs(fa, self.device)
+        # A group of one ungapped sequence takes its consensus from this same
+        # McCaskill run, before the fold threshold (the single-sequence
+        # route of ops/alifold.py), when both models share a parameter set.
+        seqs = [f.seq for f in fa]
+        posts = None
+        if self.alifold is not None and self.alifold.bl == self.s_model.bl:
+            posts = self.s_model.batch_bp_posteriors(seqs, self.device, th=0.0)
+        self.bp = self.s_model.all_seqs(fa, self.device, posts)
+        if self.alifold is not None:
+            self.alifold.leaves = dict(zip(seqs, posts or []))
+            first_call = len(self.alifold.calls)
         _phase("fold")
         self.mp = self.a_model.all_pairs(fa, self.device)
         _phase("align")
@@ -225,11 +250,13 @@ class Dafs:
         tree_line = guide_tree.print_tree(self.tree, [f.name for f in fa])
         out.write(tree_line + "\n")
 
-        s, ss, aln = self._align(len(self.tree) - 1)
-        _phase("merges")
+        s, ss, aln = self._align(len(self.tree) - 1, phases)
+        t0 = time.perf_counter()
 
-        # final common structure (src/dafs.cpp:1857-1873), without the mix
-        p = projection.average_basepairing_probability(self.bp, aln)
+        # final common structure (src/dafs.cpp:1857-1873); use_alifold1_ is
+        # always true in the reference
+        p = self._avg_bp(aln, use_alifold=True)
+        _phase("final avg_bp (+alifold)")
         ss, sstr = self._decode_structure(p, self.o.th_s1)
         _phase("final decode")
 
@@ -248,5 +275,6 @@ class Dafs:
             score=float(s),
             phase_seconds=phases,
             similarity=sim,
+            consensus_calls=self.alifold.calls[first_call:] if self.alifold is not None else [],
         )
         return out.getvalue()

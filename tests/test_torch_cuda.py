@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from dafs_tpu_torch.ops import (
-    cuda_lib, nussinov, nussinov_cuda, nw, nw_cuda, pairhmm, pairhmm_cuda,
+    alifold, cuda_lib, nussinov, nussinov_cuda, nw, nw_cuda, pairhmm, pairhmm_cuda,
 )
 
 pytestmark = pytest.mark.cuda
@@ -90,3 +90,20 @@ def test_wrappers_reject_bad_inputs(dev):
         nw_cuda.decode(torch.zeros((1, 8, 8)), torch.zeros((1, 9), dtype=torch.int32),
                        torch.zeros((1, 9), dtype=torch.int32),
                        torch.tensor([8], dtype=torch.int32), torch.tensor([8], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("seqs", [
+    ["GGGC-AAAGCCC", "GG-CAAA-GCCC", "GGGCAA--GCCC"],
+    ["GGGCAACGACGG--UUCGUCG--AAACCC", "GGGCAACG--GGCAUUCG--GCAAACCC-",
+     "GGGCA--GACGGCAUU--UCGGCAAACC-"],
+    ["GGGGAAAAAAAAAAAACCCC----", "GGGG------------AAAACCCC"],   # BCUT 16
+    ["GGGGGGCCCCCC" * 6] * 2,                                  # ladder steps
+])
+def test_consensus_matches_cpu(seqs, dev):
+    """The RNAalifold consensus on the card agrees with its CPU run at the
+    consensus tolerance (tests/test_torch_alifold.py)."""
+    got = alifold.Alifold(0.0)
+    want = alifold.Alifold(0.0)
+    np.testing.assert_allclose(got.consensus(seqs, dev), want.consensus(seqs, "cpu"),
+                               rtol=2e-4, atol=1e-6)
+    assert [c["attempts"] for c in got.calls] == [c["attempts"] for c in want.calls]

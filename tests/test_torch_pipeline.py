@@ -1,14 +1,18 @@
 """The port's whole slice against `dafs_tpu`, its entry points, and its
 independence from JAX.
 
-The reference is `dafs_tpu.pipeline.Dafs(ProbCons(0.01), RNAfold(True,
-CUTOFF), Options(use_alifold=False), alifold_model=None)`, run in a
+The references are the JAX package's default path, `dafs_tpu.pipeline.Dafs(
+ProbCons(0.01), RNAfold(True, CUTOFF), Options(), alifold_model=Alifold(0.0,
+bl=True))`, the same without any consensus mix (`Options(use_alifold=False),
+alifold_model=None`), and the JAX CLI's `--no-alifold`.  They run in one
 subprocess with XLA's CPU code generation capped below FMA
 (`--xla_cpu_max_isa=AVX`): by default XLA on the CPU contracts
 multiply-adds into fused multiply-adds, which the port (like the TPU) never
 does, and on the seeded family below that one rounding difference moves a
 DD trajectory and one gap.  Without it, tree topology, SS_cons and the
-gapped rows must be identical and the tree scores agree within 1e-4.
+gapped rows must be identical and the tree scores agree within 1e-4.  The
+JAX package keeps its consensus pf-scale warm start in a module global, so
+the reference clears it before each run, as a fresh process would start.
 """
 
 import json
@@ -22,8 +26,10 @@ import pytest
 import torch
 
 import dafs_tpu_torch
-from dafs_tpu_torch import cli
+from dafs_tpu_torch import cli, pipeline
 from dafs_tpu_torch.fasta import Fasta
+from dafs_tpu_torch.models import align_models, fold_models
+from dafs_tpu_torch.typedefs import CUTOFF
 
 # pytest-xdist runs several test processes side by side; torch's own
 # intra-op threads in each of them would oversubscribe the cores
@@ -58,38 +64,46 @@ def _seeded_family(seed=1, n=5):
 FAMILIES = {"three_hairpins": TINY, "seeded_5x52": _seeded_family()}
 
 _JAX_REFERENCE = """
-import json, sys
-from dafs_tpu import pipeline
+import contextlib, io, json, sys
+from dafs_tpu import cli, pipeline
 from dafs_tpu.fasta import Fasta
 from dafs_tpu.models import align_models, fold_models
+from dafs_tpu.ops import alifold
 from dafs_tpu.parallel.mesh import force_single_device
-out = {}
-for name, recs in json.loads(sys.stdin.read()).items():
-    with force_single_device():
-        d = pipeline.Dafs(align_models.ProbCons(0.01), fold_models.RNAfold(True, 0.01),
-                          pipeline.Options(use_alifold=False), alifold_model=None)
-        d.run([Fasta(n, s) for n, s in recs])
-    out[name] = d.result
+args = json.loads(sys.stdin.read())
+out = {"plain": {}, "default": {}}
+for name, recs in args["families"].items():
+    for kind, opts, ali in (("plain", pipeline.Options(use_alifold=False), None),
+                            ("default", pipeline.Options(), alifold.Alifold(0.0, bl=True))):
+        alifold._SC_CACHE.clear()
+        with force_single_device():
+            d = pipeline.Dafs(align_models.ProbCons(0.01), fold_models.RNAfold(True, 0.01),
+                              opts, alifold_model=ali)
+            d.run([Fasta(n, s) for n, s in recs])
+        out[kind][name] = d.result
+alifold._SC_CACHE.clear()
+buf = io.StringIO()
+with force_single_device(), contextlib.redirect_stdout(buf):
+    cli.main(["--no-alifold", args["tiny_fa"]])
+out["cli_no_alifold"] = buf.getvalue()
 print(json.dumps(out))
 """
 
 
 @pytest.fixture(scope="module")
-def jax_reference():
+def jax_reference(tmp_path_factory):
+    tiny = tmp_path_factory.mktemp("fa") / "tiny.fa"
+    tiny.write_text("".join(f">{n}\n{s}\n" for n, s in TINY))
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX")
     proc = subprocess.run(
-        [sys.executable, "-c", _JAX_REFERENCE], input=json.dumps(FAMILIES),
-        capture_output=True, text=True, cwd=ROOT, env=env, timeout=600, check=True,
+        [sys.executable, "-c", _JAX_REFERENCE],
+        input=json.dumps(dict(families=FAMILIES, tiny_fa=str(tiny))),
+        capture_output=True, text=True, cwd=ROOT, env=env, timeout=900, check=True,
     )
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    return json.loads(proc.stdout.strip().splitlines()[-1]), str(tiny)
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_slice_matches_jax(family, jax_reference):
-    want = jax_reference[family]
-    got = dafs_tpu_torch.align_and_fold(
-        [Fasta(n, s) for n, s in FAMILIES[family]], device="cpu", use_alifold=False
-    )
+def _assert_same_result(got, want):
     assert NUM.sub("#", got.tree) == NUM.sub("#", want["tree"])
     for a, b in zip(NUM.findall(got.tree), NUM.findall(want["tree"])):
         assert abs(float(a) - float(b)) <= 1e-4
@@ -99,6 +113,34 @@ def test_slice_matches_jax(family, jax_reference):
     assert abs(got.score - want["score"]) <= 1e-4
 
 
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_slice_matches_jax(family, jax_reference):
+    """No consensus mix anywhere: `Dafs(..., alifold_model=None)`."""
+    d = pipeline.Dafs(align_models.ProbCons(0.01), fold_models.RNAfold(True, CUTOFF),
+                      pipeline.Options(use_alifold=False), alifold_model=None, device="cpu")
+    d.run([Fasta(n, s) for n, s in FAMILIES[family]])
+    _assert_same_result(dafs_tpu_torch.Result(**d.result), jax_reference[0]["plain"][family])
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_default_path_matches_jax(family, jax_reference):
+    """DAFS's default path: the consensus mixed into every merge and the
+    final structure."""
+    got = dafs_tpu_torch.align_and_fold(
+        [Fasta(n, s) for n, s in FAMILIES[family]], device="cpu"
+    )
+    assert got.consensus_calls
+    _assert_same_result(got, jax_reference[0]["default"][family])
+
+
+def test_no_alifold_cli_matches_jax_cli(jax_reference, capsys):
+    """`--no-alifold` drops the mix from the merges only; the final
+    structure mixes it in, as in the JAX CLI."""
+    want, tiny = jax_reference
+    assert cli.main(["--no-alifold", "--device", "cpu", tiny]) == 0
+    assert capsys.readouterr().out == want["cli_no_alifold"]
+
+
 def test_port_runs_without_jax():
     code = (
         "import sys\n"
@@ -106,6 +148,7 @@ def test_port_runs_without_jax():
         "import dafs_tpu_torch\n"
         f"res = dafs_tpu_torch.align_and_fold({[s for _, s in TINY]!r}, device='cpu')\n"
         "assert not [m for m in sys.modules if m == 'dafs_tpu' or m.startswith('dafs_tpu.')]\n"
+        "assert [c for c in res.consensus_calls if c['route'] == 'alifold']\n"
         "print(res.ss_cons)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -123,18 +166,37 @@ def tiny_fa(tmp_path):
     return str(p)
 
 
+def _assert_valid_output(out):
+    lines = out.splitlines()
+    assert re.fullmatch(r"\[ .* \]", lines[0]) and lines[1] == ">SS_cons"
+    assert [l[2:] for l in lines[3::2]] == ["a", "b", "c"]
+    assert all(r.replace("-", "") == s for r, (_, s) in zip(lines[4::2], TINY))
+    sstr = lines[2]
+    assert re.fullmatch(r"[().]+", sstr) and all(len(r) == len(sstr) for r in lines[4::2])
+    depth = 0
+    for ch in sstr:
+        depth += {"(": 1, ")": -1}.get(ch, 0)
+        assert depth >= 0
+    assert depth == 0
+
+
 def test_cli_matches_api(tiny_fa, capsys):
     assert cli.main(["--no-alifold", "--device", "cpu", tiny_fa]) == 0
     out = capsys.readouterr().out
-    res = dafs_tpu_torch.align_and_fold(tiny_fa, device="cpu")
+    res = dafs_tpu_torch.align_and_fold(tiny_fa, device="cpu", use_alifold=False)
     assert out == str(res)
-    lines = out.splitlines()
-    assert lines[1] == ">SS_cons" and [l[2:] for l in lines[3::2]] == ["a", "b", "c"]
-    assert all(r.replace("-", "") == s for r, (_, s) in zip(lines[4::2], TINY))
+    _assert_valid_output(out)
+
+
+def test_cli_without_flags_runs(tiny_fa, capsys):
+    """The CLI without options runs the default path, consensus mix on."""
+    assert cli.main(["--device", "cpu", tiny_fa]) == 0
+    out = capsys.readouterr().out
+    _assert_valid_output(out)
+    assert out == str(dafs_tpu_torch.align_and_fold(tiny_fa, device="cpu"))
 
 
 @pytest.mark.parametrize("argv", [
-    [],                                   # the consensus mix
     ["-a", "CONTRAlign"],
     ["-s", "CONTRAfold"],
     ["--ipknot"],
@@ -153,18 +215,44 @@ def test_cli_matches_api(tiny_fa, capsys):
     ["--dd-update", "adagrad"],
 ])
 def test_cli_options_outside_the_slice_raise(argv, tiny_fa):
-    args = argv if argv == [] else ["--no-alifold", *argv]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main([*args, "--device", "cpu", tiny_fa])
+        cli.main([*argv, "--device", "cpu", tiny_fa])
 
 
 @pytest.mark.parametrize("kw", [
-    dict(use_alifold=True), dict(align_model="CONTRAlign"),
+    dict(align_model="CONTRAlign"),
     dict(fold_model="CONTRAfold"), dict(n_refinement=2), dict(dd_update="adam"),
 ])
 def test_api_options_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dafs_tpu_torch.align_and_fold([s for _, s in TINY], device="cpu", **kw)
+
+
+def test_api_use_alifold_true_equals_default():
+    seqs = [s for _, s in TINY]
+    on = dafs_tpu_torch.align_and_fold(seqs, device="cpu", use_alifold=True)
+    default = dafs_tpu_torch.align_and_fold(seqs, device="cpu")
+    assert str(on) == str(default) and on.score == default.score
+    assert [c["route"] for c in on.consensus_calls] == [c["route"] for c in default.consensus_calls]
+
+
+@pytest.mark.parametrize("fold_bl", [True, False])
+def test_dafs_reused_reports_each_run(fold_bl):
+    """A `Dafs` run twice reports each run's consensus calls only, and
+    serves leaf groups from the fold stage only under the consensus's own
+    parameter set."""
+    from dafs_tpu_torch.ops import alifold
+
+    d = pipeline.Dafs(align_models.ProbCons(0.01), fold_models.RNAfold(fold_bl, CUTOFF),
+                      pipeline.Options(), alifold_model=alifold.Alifold(0.0, bl=True),
+                      device="cpu")
+    runs = []
+    for recs in (TINY, TINY[:2]):
+        d.run([Fasta(n, s) for n, s in recs])
+        runs.append([c["route"] for c in d.result["consensus_calls"]])
+    leaf = "fold stage" if fold_bl else "mccaskill"
+    assert runs[0].count(leaf) == 3 and runs[1].count(leaf) == 2
+    assert len(d.alifold.calls) == len(runs[0]) + len(runs[1])
 
 
 def test_default_device_needs_a_card():
