@@ -9,7 +9,11 @@
    Nussinov, K4 NW) on the card at the shapes of the main path and holds it
    against its plain PyTorch version on the same inputs; the decoders must
    be bit-equal, the pair-HMM passes bit-equal or within 1e-6.  Times both
-   with CUDA events.
+   with CUDA events, and works out each kernel's roofline bound from the
+   inputs' true lengths.  Then K3 and K4 on tie-heavy scores (quarter steps,
+   -0.0) and on the DD loop's batch shapes with ragged lengths down to 0,
+   each bit-equal to the plain version, and K3's dependency floor (cluster
+   barriers and L2 round trips alone).
 4. Slice phase: resets the launch counts, runs DAFS's default path,
    `align_and_fold(..., device="cuda")` with the RNAalifold consensus mixed
    into every merge and the final structure, on RF00005 (10 tRNAs) and
@@ -91,13 +95,40 @@ def pairhmm_inputs(fa, dev):
     return [torch.from_numpy(a).to(dev) for a in (c1, n1, c2, n2)]
 
 
-def nussinov_inputs(rng, B, L, dev):
+def ragged_lens(rng, B, L, short):
+    """True lengths near L, the last `short` of them 0, 1, 2, ... (a DD
+    batch holds problems of many lengths)."""
+    lens = rng.integers(L - 40, L + 1, size=B).astype(np.int32)
+    lens[B - short:] = np.arange(short) % 6
+    return lens
+
+
+def quarter_steps(rng, shape):
+    """Scores in quarter steps, zeros half of them -0.0: exact sums, so
+    every max and every tie-break is exercised."""
+    sm = (rng.integers(-4, 5, size=shape) / 4).astype(np.float32)
+    neg0 = (sm == 0) & (rng.random(shape) < 0.5)
+    sm[neg0] = np.float32(-0.0)
+    return sm
+
+
+def nussinov_ties(rng, B, L, dev, short=0):
     import torch
 
-    lens = rng.integers(L - 40, L + 1, size=B).astype(np.int32)
+    lens = ragged_lens(rng, B, L, short)
+    return (torch.from_numpy(quarter_steps(rng, (B, L, L))).to(dev),
+            torch.from_numpy(lens).to(dev))
+
+
+def nussinov_inputs(rng, B, L, dev, short=0):
+    import torch
+
+    lens = ragged_lens(rng, B, L, short)
     sm = np.full((B, L, L), np.float32(-0.8), np.float32)
     for b in range(B):
         n = int(lens[b])
+        if n < 4:
+            continue
         p = np.zeros((n, n), np.float32)
         for _ in range(int(rng.integers(n, 3 * n))):
             i = int(rng.integers(0, n - 3))
@@ -108,28 +139,37 @@ def nussinov_inputs(rng, B, L, dev):
     return torch.from_numpy(sm).to(dev), torch.from_numpy(lens).to(dev)
 
 
-def nw_inputs(rng, B, L1, L2, dev):
+def nw_inputs(rng, B, L1, L2, dev, short=0, ties=False):
+    """Banded NW problems; `ties`: quarter-step posteriors with -0.0 among
+    the scores, so M/X/Y ties are frequent."""
     import torch
 
     from dafs_tpu_torch.ops import nw
 
-    th = np.float32(0.01)
+    th = np.float32(0.25 if ties else 0.01)
     sm = np.full((B, L1, L2), -th, np.float32)
     envf = np.zeros((B, L1 + 1), np.int32)
     envl = np.full((B, L1 + 1), L2, np.int32)
-    l1 = rng.integers(L1 - 40, L1 + 1, size=B).astype(np.int32)
+    l1 = ragged_lens(rng, B, L1, short)
     l2 = rng.integers(L2 - 40, L2 + 1, size=B).astype(np.int32)
     for b in range(B):
         n1, n2 = int(l1[b]), int(l2[b])
-        p = np.zeros((n1, n2), np.float32)
-        for i in range(n1):
-            j = int(np.clip(round(i * n2 / n1 + rng.integers(-3, 4)), 0, n2 - 1))
-            p[i, j] = 0.3 + 0.7 * rng.random()
-            if rng.random() < 0.3:
-                p[i, int(rng.integers(0, n2))] += 0.2
+        if ties:
+            p = np.abs(quarter_steps(rng, (n1, n2))) * (rng.random((n1, n2)) < 0.3)
+            q = np.abs(quarter_steps(rng, (n1, n2))) / 2
+            s = np.float32(p - th + q)
+            s[rng.random((n1, n2)) < 0.05] = np.float32(-0.0)
+        else:
+            p = np.zeros((n1, n2), np.float32)
+            for i in range(n1):
+                j = int(np.clip(round(i * n2 / n1 + rng.integers(-3, 4)), 0, n2 - 1))
+                p[i, j] = 0.3 + 0.7 * rng.random()
+                if rng.random() < 0.3:
+                    p[i, int(rng.integers(0, n2))] += 0.2
+            q = (rng.random((n1, n2)) * 0.1).astype(np.float32)
+            s = np.float32(p - th + q)
         env = nw.envelope(p, th)
-        q = (rng.random((n1, n2)) * 0.1).astype(np.float32)
-        sm[b, :n1, :n2] = np.float32(p - th + q)
+        sm[b, :n1, :n2] = s
         envf[b, : n1 + 1] = env[:, 0]
         envl[b, : n1 + 1] = env[:, 1]
     return [torch.from_numpy(a).to(dev) for a in (sm, envf, envl, l1, l2)]
@@ -143,10 +183,131 @@ def max_abs(a, b) -> float:
     return float((a.long() - b.long()).abs().max())
 
 
-def kernel_phase(dev):
-    """Returns {kernel name: row of the JSON table}; raises on a mismatch."""
+# ---------------------------------------------------------------- bounds --
+# The least time the card could take for a kernel's work on these inputs:
+# the larger of its operations over the H100's float32 rate outside the
+# tensor cores and its bytes (each input read once, each output written
+# once) over the memory rate.  Work is counted within the true lengths.
+
+F32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+LOG_ADD_OPS = 12  # max, min, sub, two compares, min, 3 mul + 3 add, add
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by, bound_kind) of `ops` operations and `nbytes`."""
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations", "compute"
+    return t_bytes * 1e3, "bytes", "bytes"
+
+
+def pairhmm_bound(args, forward):
+    """Per cell of the (l1+1) x (l2+1) grid: forward 4 LOG_ADDs and 10
+    adds, backward 7 LOG_ADDs and 12 adds (csrc/pairhmm.cu); bytes: the
+    codes, and the whole padded posterior plane written."""
+    c1, n1, c2, n2 = (a.cpu().numpy() for a in args)
+    cells = float(((n1.astype(np.int64) + 1) * (n2.astype(np.int64) + 1)).sum())
+    per_cell = 4 * LOG_ADD_OPS + 10 if forward else 7 * LOG_ADD_OPS + 12
+    B, imax = c1.shape
+    nbytes = 4 * (c1.size + c2.size + 2 * B) + 4 * B * imax * c2.shape[1] + 4 * B * 6
+    return bound(cells * per_cell, nbytes)
+
+
+def nussinov_bound(lens, L):
+    """One add and one compare per bifurcation term, sum over ld of
+    (l - ld)(ld - 3); bytes: the upper triangle of the scores within l,
+    the lengths, the score and ss."""
+    ops = nbytes = 0.0
+    for l in lens.cpu().numpy().astype(np.int64):
+        ld = np.arange(4, max(l, 4))
+        ops += 2.0 * float(((l - ld) * (ld - 3)).sum())
+        nbytes += 4.0 * l * (l + 1) / 2
+    B = len(lens)
+    return bound(ops, nbytes + 4 * B * (2 + L))
+
+
+def nw_bound(args):
+    """Five operations per cell inside the envelope (add, M/X compare, the
+    two maxima of the row scan and dp, the Y compare); bytes: those cells'
+    scores, the envelope rows within l1, the score and al."""
+    sm, envf, envl, l1, l2 = (a.cpu().numpy() for a in args)
+    cells = 0.0
+    for b in range(sm.shape[0]):
+        rows = np.arange(1, int(l1[b]) + 1)
+        width = envl[b, rows] - np.maximum(envf[b, rows], 1) + 1
+        cells += float(np.maximum(width, 0).sum()) + len(rows)
+    B, L1 = sm.shape[:2]
+    nbytes = 4 * cells + 8 * float((l1 + 1).sum()) + 4 * B * (1 + L1)
+    return bound(5 * cells, nbytes)
+
+
+def same(got, want):
+    """(bit-equal, max_abs_err) of two tuples of tensors."""
     import torch
 
+    torch.cuda.synchronize()
+    return (all(torch.equal(g, w) for g, w in zip(got, want)),
+            max(max_abs(g, w) for g, w in zip(got, want)))
+
+
+def stress_decoders(rng, dev):
+    """K3 and K4 on tie-heavy scores (quarter steps, -0.0) and on the DD
+    loop's batch shapes with ragged true lengths down to 0; each case must
+    be bit-equal to the plain version.  Also K3 at shapes whose tables or
+    traceback codes do not fit in shared memory."""
+    from dafs_tpu_torch.ops import nussinov, nussinov_cuda, nw, nw_cuda
+
+    cases = [("nussinov ties", B, L, nussinov_ties(rng, B, L, dev, short))
+             for B, L, short in ((8, 352, 2), (10, 320, 6), (1, 96, 0))]
+    cases += [("nussinov DD batch", B, L, nussinov_inputs(rng, B, L, dev, short))
+              for B in (2, 4, 10) for L, short in ((320, B // 2), (352, min(B, 6)))]
+    # the other layouts (csrc/nussinov.cu): tables on chip with the codes in
+    # global memory, everything in global memory, and global tables with
+    # the codes on chip (four CTAs a problem)
+    cases += [(label, B, L, nussinov_inputs(rng, B, L, dev))
+              for label, B, L in (("on-chip tables, global codes", 1, 512),
+                                  ("global tables and codes", 1, 700),
+                                  ("global tables, on-chip codes", 40, 352))]
+    for label, B, L, args in cases:
+        exact, err = same(nussinov_cuda.decode(*args), nussinov.decode_plain(*args))
+        print(f"kernel nussinov {label} B={B} L={L} lens={args[1].tolist()}: "
+              f"bit-equal={exact} C={nussinov_cuda.cluster_size(B, L)}")
+        if not exact:
+            raise AssertionError(f"nussinov {label} B={B} L={L}: kernel differs "
+                                 f"from plain version (max_abs_err {err})")
+    cases = [("nw ties", B, L1, L2, nw_inputs(rng, B, L1, L2, dev, short, ties=True))
+             for B, L1, L2, short in ((4, 320, 320, 1), (5, 352, 320, 2), (1, 96, 96, 0))]
+    cases += [("nw DD batch", B, L1, L2, nw_inputs(rng, B, L1, L2, dev, short))
+              for B in (1, 2, 5) for L1, L2, short in ((320, 320, B // 2), (352, 320, 0))]
+    for label, B, L1, L2, args in cases:
+        exact, err = same(nw_cuda.decode(*args), nw.decode_plain(*args))
+        print(f"kernel nw {label} B={B} {L1}x{L2} l1={args[3].tolist()}: "
+              f"bit-equal={exact}")
+        if not exact:
+            raise AssertionError(f"nw {label} B={B} {L1}x{L2}: kernel differs "
+                                 f"from plain version (max_abs_err {err})")
+
+
+def floor_probe(dev):
+    """Times K3's dependency floor at (8, 352): 351 cluster barriers, each
+    after one dependent L2 round trip, on a cluster of the size the
+    wrapper picks there."""
+    import torch
+
+    from dafs_tpu_torch.ops import nussinov_cuda
+
+    buf = torch.zeros(64 * 32, dtype=torch.float32, device=dev)
+    C = nussinov_cuda.cluster_size(8, 352)
+    ms = cuda_ms(lambda: nussinov_cuda.floor_probe(buf, 351, C), 10)
+    print(f"kernel nussinov floor: 351 cluster barriers + L2 round trips, "
+          f"C={C}: {ms:.4f} ms")
+    return ms
+
+
+def kernel_phase(dev):
+    """Returns {kernel name: row of the JSON table}; raises on a mismatch.
+    A kernel's row holds its last timed shape."""
     from dafs_tpu_torch.ops import nussinov, nussinov_cuda, nw, nw_cuda
     from dafs_tpu_torch.ops import pairhmm, pairhmm_cuda
 
@@ -154,10 +315,15 @@ def kernel_phase(dev):
     tab = pairhmm.tables(dev)
     rows = {}
 
-    def record(name, route, source, replaces, err, ms, plain_ms):
-        rows[name] = dict(name=name, route=route, source=source,
+    def record(name, source, replaces, err, ms, plain_ms, bnd):
+        bound_ms, bound_by, bound_kind = bnd
+        rows[name] = dict(name=name, route="cuda", source=source,
                           replaces=replaces, launches=0, max_abs_err=err,
-                          ms=ms, plain_ms=plain_ms)
+                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, bound_kind=bound_kind,
+                          library_ms=None)
+        print(f"  bound {bound_ms:.6f} ms ({bound_by}); kernel at "
+              f"{bound_ms / ms:.2e} of it")
 
     for label, fa_name in (("L<=96", "RF00005_0.fa"), ("L<=320", "RF00017_4.fa")):
         args = pairhmm_inputs(read_fasta(fa_name), dev)
@@ -167,54 +333,46 @@ def kernel_phase(dev):
             ("pairhmm_backward", pairhmm_cuda.backward, pairhmm.backward_plain,
              "dafs_tpu/ops/pairhmm_pallas.py:236", 1e-6),
         ):
-            got = kfn(*args, tab)
-            want = pfn(*args, tab)
-            torch.cuda.synchronize()
-            err = max(max_abs(g, w) for g, w in zip(got, want))
-            exact = all(torch.equal(g, w) for g, w in zip(got, want))
+            exact, err = same(kfn(*args, tab), pfn(*args, tab))
             ms = cuda_ms(lambda: kfn(*args, tab), 5)
             plain_ms = cuda_ms(lambda: pfn(*args, tab), 1)
             print(f"kernel {name} B={args[0].shape[0]} {label}: bit-equal={exact} "
                   f"max_abs_err={err!r} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
             if err > tol:
                 raise AssertionError(f"{name} {label}: max_abs_err {err} > {tol}")
-            record(name, "cuda", "dafs_tpu_torch/csrc/pairhmm.cu", replaces,
-                   err, ms, plain_ms)
+            record(name, "dafs_tpu_torch/csrc/pairhmm.cu", replaces, err, ms,
+                   plain_ms, pairhmm_bound(args, name == "pairhmm_forward"))
 
     # the padded lengths of the main path: RF00005's merges, RF00017's
     # merges, and RF00017's final structure (383 columns)
     for L in (96, 352, 384):
         sm, lens = nussinov_inputs(rng, 8, L, dev)
-        got = nussinov_cuda.decode(sm, lens)
-        want = nussinov.decode_plain(sm, lens)
-        torch.cuda.synchronize()
-        exact = all(torch.equal(g, w) for g, w in zip(got, want))
-        err = max(max_abs(g, w) for g, w in zip(got, want))
+        exact, err = same(nussinov_cuda.decode(sm, lens), nussinov.decode_plain(sm, lens))
         ms = cuda_ms(lambda: nussinov_cuda.decode(sm, lens), 10)
         plain_ms = cuda_ms(lambda: nussinov.decode_plain(sm, lens), 1)
         print(f"kernel nussinov B=8 L={L}: bit-equal={exact} kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f}")
+              f"plain_ms={plain_ms:.4f} C={nussinov_cuda.cluster_size(8, L)}")
         if not exact:
             raise AssertionError(f"nussinov L={L}: kernel differs from plain version")
-        record("nussinov", "cuda", "dafs_tpu_torch/csrc/nussinov.cu",
-               "dafs_tpu/ops/nussinov_pallas.py:76", err, ms, plain_ms)
+        record("nussinov", "dafs_tpu_torch/csrc/nussinov.cu",
+               "dafs_tpu/ops/nussinov_pallas.py:76", err, ms, plain_ms,
+               nussinov_bound(lens, L))
 
     # square merges, and RF00017's last merge: 337 against 317 columns
     for L1, L2 in ((96, 96), (320, 320), (352, 320)):
         args = nw_inputs(rng, 4, L1, L2, dev)
-        got = nw_cuda.decode(*args)
-        want = nw.decode_plain(*args)
-        torch.cuda.synchronize()
-        exact = all(torch.equal(g, w) for g, w in zip(got, want))
-        err = max(max_abs(g, w) for g, w in zip(got, want))
+        exact, err = same(nw_cuda.decode(*args), nw.decode_plain(*args))
         ms = cuda_ms(lambda: nw_cuda.decode(*args), 10)
         plain_ms = cuda_ms(lambda: nw.decode_plain(*args), 1)
         print(f"kernel nw B=4 L1={L1} L2={L2}: bit-equal={exact} kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f}")
         if not exact:
             raise AssertionError(f"nw {L1}x{L2}: kernel differs from plain version")
-        record("nw", "cuda", "dafs_tpu_torch/csrc/nw.cu",
-               "dafs_tpu/ops/nw_pallas.py:37", err, ms, plain_ms)
+        record("nw", "dafs_tpu_torch/csrc/nw.cu", "dafs_tpu/ops/nw_pallas.py:37",
+               err, ms, plain_ms, nw_bound(args))
+
+    stress_decoders(rng, dev)
+    floor_probe(dev)
     return rows
 
 

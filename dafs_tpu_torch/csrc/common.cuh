@@ -8,6 +8,9 @@
 
 #include <cuda_runtime.h>
 
+// Shared memory one block can use on Hopper (227 KB), dynamic beyond 48 KB
+#define DAFS_SMEM_MAX 232448
+
 // ProbCons LOG_ZERO (-2e20) and LOG_UNDERFLOW (7.5) as float32
 #define DAFS_LOG_ZERO (-0x1.5af1d8p+67f)
 #define DAFS_LOG_UNDERFLOW (0x1.ep+2f)

@@ -107,3 +107,94 @@ def test_consensus_matches_cpu(seqs, dev):
     np.testing.assert_allclose(got.consensus(seqs, dev), want.consensus(seqs, "cpu"),
                                rtol=2e-4, atol=1e-6)
     assert [c["attempts"] for c in got.calls] == [c["attempts"] for c in want.calls]
+
+
+def _quarter_steps(rng, shape):
+    """Scores in quarter steps, half the zeros -0.0: frequent exact ties."""
+    sm = (rng.integers(-4, 5, size=shape) / 4).astype(np.float32)
+    sm[(sm == 0) & (rng.random(shape) < 0.5)] = np.float32(-0.0)
+    return sm
+
+
+def _ragged(rng, B, L, short):
+    lens = rng.integers(L - 40, L + 1, size=B).astype(np.int32)
+    lens[B - short:] = np.arange(short) % 6
+    return lens
+
+
+def _nussinov_stress(dev, rng, B, L, short):
+    return (torch.from_numpy(_quarter_steps(rng, (B, L, L))).to(dev),
+            torch.from_numpy(_ragged(rng, B, L, short)).to(dev))
+
+
+def _nw_stress(dev, rng, B, L1, L2, short):
+    th = np.float32(0.25)
+    sm = np.full((B, L1, L2), -th, np.float32)
+    envf = np.zeros((B, L1 + 1), np.int32)
+    envl = np.full((B, L1 + 1), L2, np.int32)
+    l1 = _ragged(rng, B, L1, short)
+    l2 = rng.integers(max(L2 - 40, 0), L2 + 1, size=B).astype(np.int32)
+    for b in range(B):
+        n1, n2 = int(l1[b]), int(l2[b])
+        p = np.abs(_quarter_steps(rng, (n1, n2))) * (rng.random((n1, n2)) < 0.3)
+        s = np.float32(p - th + np.abs(_quarter_steps(rng, (n1, n2))) / 2)
+        s[rng.random((n1, n2)) < 0.05] = np.float32(-0.0)
+        env = nw.envelope(p, th)
+        sm[b, :n1, :n2] = s
+        envf[b, : n1 + 1] = env[:, 0]
+        envl[b, : n1 + 1] = env[:, 1]
+    return [torch.from_numpy(a).to(dev) for a in (sm, envf, envl, l1, l2)]
+
+
+def _equal(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B,L,short", [
+    (8, 352, 2),    # tie-heavy, two problems of length 0 and 1
+    (10, 320, 6),   # a DD layer of five merges, lengths 0..5 among them
+    (1, 96, 0),     # one problem
+    (2, 512, 1),    # tables on chip, codes in global memory
+    (40, 352, 0),   # two CTAs a problem: tables in global memory
+])
+def test_nussinov_stress_matches_plain(B, L, short, dev):
+    sm, lens = _nussinov_stress(dev, np.random.default_rng(B * 1000 + L), B, L, short)
+    _equal(nussinov.decode(sm, lens), nussinov.decode_plain(sm, lens))
+
+
+@pytest.mark.parametrize("B,L1,L2,short", [
+    (4, 320, 320, 1), (5, 352, 320, 2), (1, 96, 96, 0), (2, 320, 321, 0),
+])
+def test_nw_stress_matches_plain(B, L1, L2, short, dev):
+    args = _nw_stress(dev, np.random.default_rng(B * 1000 + L1 + L2), B, L1, L2, short)
+    _equal(nw.decode(*args), nw.decode_plain(*args))
+
+
+def test_largest_shapes_and_just_above(dev):
+    """K3 takes L up to 1024 (tables and codes in global memory there); K4
+    takes L2 + 1 <= 1024 columns and L1 rows while its shared memory fits
+    (771 rows at 1023 columns).  One step above either raises."""
+    rng = np.random.default_rng(3)
+    sm, lens = _nussinov_stress(dev, rng, 1, nussinov_cuda.MAX_L, 0)
+    _equal(nussinov.decode(sm, lens), nussinov.decode_plain(sm, lens))
+    over = nussinov_cuda.MAX_L + 1
+    with pytest.raises(ValueError, match="padded length"):
+        nussinov_cuda.decode(torch.zeros((1, over, over), device=dev),
+                             torch.tensor([over], dtype=torch.int32, device=dev))
+    L2 = nw_cuda.MAX_COLS - 1
+    L1 = max(n for n in range(1, 2000)
+             if nw_cuda.smem_bytes(n, L2) <= nw_cuda.MAX_SMEM_BYTES)
+    args = _nw_stress(dev, rng, 1, L1, L2, 0)
+    _equal(nw.decode(*args), nw.decode_plain(*args))
+    with pytest.raises(ValueError, match="shared memory"):
+        nw_cuda.decode(torch.zeros((1, L1 + 1, L2), device=dev),
+                       *(torch.zeros((1, L1 + 2), dtype=torch.int32, device=dev),) * 2,
+                       torch.tensor([1], dtype=torch.int32, device=dev),
+                       torch.tensor([1], dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="padded shape"):
+        nw_cuda.decode(torch.zeros((1, 8, L2 + 1), device=dev),
+                       *(torch.zeros((1, 9), dtype=torch.int32, device=dev),) * 2,
+                       torch.tensor([1], dtype=torch.int32, device=dev),
+                       torch.tensor([1], dtype=torch.int32, device=dev))
