@@ -5,14 +5,18 @@
 
 1. Prints the card's `nvidia-smi` name and power limit; fails without CUDA.
 2. Builds the CUDA kernels from `dafs_tpu_torch/csrc/` (nvcc, sm_90a).
-3. Kernel phase: runs each kernel (K1 pair-HMM forward, K2 backward, K3
-   Nussinov, K4 NW) on the card at the shapes of the main path and holds it
-   against its plain PyTorch version on the same inputs; the decoders must
-   be bit-equal, the pair-HMM passes bit-equal or within 1e-6.  Times both
-   with CUDA events, and works out each kernel's roofline bound from the
-   inputs' true lengths.  Then K3 and K4 on tie-heavy scores (quarter steps,
-   -0.0) and on the DD loop's batch shapes with ragged lengths down to 0,
-   each bit-equal to the plain version, and K3's dependency floor (cluster
+3. Kernel phase: runs each kernel (K1 pair-HMM forward, K2 backward, the
+   pair-HMM posterior kernel, K3 Nussinov, K4 NW) on the card at the shapes
+   of the main path and holds it against its plain PyTorch version on the
+   same inputs; every one must be bit-equal.  Times both with CUDA events,
+   and works out each kernel's roofline bound from the inputs' true
+   lengths.  For the pair-HMM also: the dependency floor (the chain of
+   diagonals alone), the time from base codes to posteriors beside the
+   eager posterior step it replaced, and stress batches (ragged lengths
+   around a warp's 32 rows, rectangular shapes, one pair, 1225 pairs), each
+   bit-equal.  Then K3 and K4 on tie-heavy scores (quarter steps, -0.0) and
+   on the DD loop's batch shapes with ragged lengths down to 0, each
+   bit-equal to the plain version, and K3's dependency floor (cluster
    barriers and L2 round trips alone).
 4. Slice phase: resets the launch counts, runs DAFS's default path,
    `align_and_fold(..., device="cuda")` with the RNAalifold consensus mixed
@@ -202,15 +206,27 @@ def bound(ops, nbytes):
     return t_bytes * 1e3, "bytes", "bytes"
 
 
-def pairhmm_bound(args, forward):
-    """Per cell of the (l1+1) x (l2+1) grid: forward 4 LOG_ADDs and 10
-    adds, backward 7 LOG_ADDs and 12 adds (csrc/pairhmm.cu); bytes: the
-    codes, and the whole padded posterior plane written."""
+EXP_OPS = 14  # five compares, four multiplies, four adds, the select
+
+
+def pairhmm_bound(args, kernel):
+    """Forward and backward, per cell of the (l1+1) x (l2+1) grid: 4
+    LOG_ADDs and 10 adds, and 7 LOG_ADDs and 12 adds (csrc/pairhmm.cu);
+    bytes: the codes, and the whole padded plane written.  Posterior, per
+    cell of l1 x l2: two adds, the clamp and the EXP quartic; bytes: those
+    cells of fm and bm, the captures, and the whole padded posterior plane
+    written."""
     c1, n1, c2, n2 = (a.cpu().numpy() for a in args)
-    cells = float(((n1.astype(np.int64) + 1) * (n2.astype(np.int64) + 1)).sum())
-    per_cell = 4 * LOG_ADD_OPS + 10 if forward else 7 * LOG_ADD_OPS + 12
+    n1, n2 = n1.astype(np.int64), n2.astype(np.int64)
     B, imax = c1.shape
-    nbytes = 4 * (c1.size + c2.size + 2 * B) + 4 * B * imax * c2.shape[1] + 4 * B * 6
+    W = c2.shape[1]
+    if kernel == "pairhmm_posterior":
+        cells = float((n1 * n2).sum())
+        nbytes = 8 * cells + 4 * B * (9 + 2) + 4 * B * (imax - 1) * (W - 1)
+        return bound(cells * (3 + EXP_OPS) + B * 2 * (2 * LOG_ADD_OPS + 3), nbytes)
+    cells = float(((n1 + 1) * (n2 + 1)).sum())
+    per_cell = 4 * LOG_ADD_OPS + 10 if kernel == "pairhmm_forward" else 7 * LOG_ADD_OPS + 12
+    nbytes = 4 * (c1.size + c2.size + 2 * B) + 4 * B * imax * W + 4 * B * 6
     return bound(cells * per_cell, nbytes)
 
 
@@ -289,6 +305,82 @@ def stress_decoders(rng, dev):
                                  f"from plain version (max_abs_err {err})")
 
 
+def random_pairs(rng, lens1, lens2, l1max, l2max, dev):
+    """Pair-HMM inputs for random sequences of these true lengths."""
+    import torch
+
+    from dafs_tpu_torch.ops import pairhmm
+
+    def seqs(lens):
+        return ["".join(rng.choice(list("ACGU"), size=int(n))) for n in lens]
+    c1, n1 = pairhmm.encode_batch(seqs(lens1), l1max)
+    c2, n2 = pairhmm.encode_batch(seqs(lens2), l2max)
+    return [torch.from_numpy(a).to(dev) for a in (c1, n1, c2, n2)]
+
+
+def pairhmm_plain(args, tab):
+    """(fm, fcap), (bm, bcap), posteriors of the plain versions."""
+    from dafs_tpu_torch.ops import pairhmm
+
+    f = pairhmm.forward_plain(*args, tab)
+    b = pairhmm.backward_plain(*args, tab)
+    return f, b, pairhmm.posterior(*f, *b, args[1], args[3], tab)
+
+
+def stress_pairhmm(rng, dev, tab):
+    """K1, K2 and the posterior path on batches at the edges of the design:
+    true lengths around a warp's 32 rows (and 0) in one batch, more rows
+    than columns and the reverse, one pair, and the 1225 pairs of a
+    50-sequence family (several waves of blocks).  Each must be bit-equal
+    to the plain versions."""
+    from dafs_tpu_torch.ops import pairhmm, pairhmm_cuda
+
+    n = rng.integers
+    cases = [
+        ("ragged", random_pairs(rng, [1, 2, 31, 32, 33, 64, 0, 64], [64, 33, 32, 31, 2, 1, 9, 64], 64, 64, dev)),
+        ("96x320", random_pairs(rng, n(60, 97, 6), n(200, 321, 6), 96, 320, dev)),
+        ("320x96", random_pairs(rng, n(200, 321, 6), n(60, 97, 6), 320, 96, dev)),
+        ("one pair", random_pairs(rng, [77], [91], 96, 96, dev)),
+        ("50-sequence family", random_pairs(rng, n(60, 97, 1225), n(60, 97, 1225), 96, 96, dev)),
+    ]
+    for label, args in cases:
+        B = args[0].shape[0]
+        want_f, want_b, want_p = pairhmm_plain(args, tab)
+        exact = [same(pairhmm_cuda.forward(*args, tab), want_f)[0],
+                 same(pairhmm_cuda.backward(*args, tab), want_b)[0],
+                 same((pairhmm_cuda.forward_backward_posterior(*args, tab),), (want_p,))[0]]
+        print(f"kernel pairhmm {label} B={B} {args[0].shape[1] - 1}x{args[2].shape[1] - 1}: "
+              f"forward, backward, posteriors bit-equal={exact}")
+        if not all(exact):
+            raise AssertionError(f"pairhmm {label}: kernels differ from the plain versions")
+        if B >= 1000:
+            ms = [cuda_ms(lambda: pairhmm_cuda.forward(*args, tab), 5),
+                  cuda_ms(lambda: pairhmm_cuda.backward(*args, tab), 5),
+                  cuda_ms(lambda: pairhmm.forward_backward_posterior(*args, tab), 5)]
+            print(f"kernel pairhmm B={B} L<=96: forward {ms[0]:.4f} ms, backward {ms[1]:.4f} ms, "
+                  f"codes to posteriors {ms[2]:.4f} ms")
+
+
+def pairhmm_floor(args, dev):
+    """Times the pair-HMM dependency floor for this batch: as many diagonals
+    as its longest pair has, the M chain and the hand-over alone, with the
+    warps the passes use at this width and with one warp (no barrier)."""
+    import torch
+
+    from dafs_tpu_torch.ops import pairhmm_cuda
+
+    B, imax = args[0].shape
+    steps = int((args[1] + args[3]).max()) + 1
+    nw = pairhmm_cuda.warps(imax)
+    buf = torch.zeros(B * 32 * nw, dtype=torch.float32, device=dev)
+    ms = cuda_ms(lambda: pairhmm_cuda.floor_probe(buf, steps, nw, B), 20)
+    one = cuda_ms(lambda: pairhmm_cuda.floor_probe(buf, steps, 1, B), 20)
+    print(f"kernel pairhmm floor: {steps} diagonals of two dependent LOG_ADDs and the "
+          f"hand-over, B={B}: {ms:.4f} ms with {nw} warps and a barrier, "
+          f"{one:.4f} ms with one warp and none")
+    return ms
+
+
 def floor_probe(dev):
     """Times K3's dependency floor at (8, 352): 351 cluster barriers, each
     after one dependent L2 round trip, on a cluster of the size the
@@ -327,21 +419,47 @@ def kernel_phase(dev):
 
     for label, fa_name in (("L<=96", "RF00005_0.fa"), ("L<=320", "RF00017_4.fa")):
         args = pairhmm_inputs(read_fasta(fa_name), dev)
-        for name, kfn, pfn, replaces, tol in (
-            ("pairhmm_forward", pairhmm_cuda.forward, pairhmm.forward_plain,
-             "dafs_tpu/ops/pairhmm_pallas.py:124", 1e-6),
-            ("pairhmm_backward", pairhmm_cuda.backward, pairhmm.backward_plain,
-             "dafs_tpu/ops/pairhmm_pallas.py:236", 1e-6),
+        lens = (args[1], args[3])
+        fm, fcap = pairhmm_cuda.forward(*args, tab)
+        bm, bcap = pairhmm_cuda.backward(*args, tab)
+        floor_ms = pairhmm_floor(args, dev)
+        for name, kfn, pfn, replaces in (
+            ("pairhmm_forward", lambda: pairhmm_cuda.forward(*args, tab),
+             lambda: pairhmm.forward_plain(*args, tab), "dafs_tpu/ops/pairhmm_pallas.py:124"),
+            ("pairhmm_backward", lambda: pairhmm_cuda.backward(*args, tab),
+             lambda: pairhmm.backward_plain(*args, tab), "dafs_tpu/ops/pairhmm_pallas.py:236"),
+            ("pairhmm_posterior", lambda: (pairhmm_cuda.posterior(fm, fcap, bm, bcap, *lens, tab),),
+             lambda: (pairhmm.posterior(fm, fcap, bm, bcap, *lens, tab),),
+             "dafs_tpu/ops/pairhmm_pallas.py:484"),
         ):
-            exact, err = same(kfn(*args, tab), pfn(*args, tab))
-            ms = cuda_ms(lambda: kfn(*args, tab), 5)
-            plain_ms = cuda_ms(lambda: pfn(*args, tab), 1)
+            exact, err = same(kfn(), pfn())
+            ms = cuda_ms(kfn, 20)
+            plain_ms = cuda_ms(pfn, 1)
             print(f"kernel {name} B={args[0].shape[0]} {label}: bit-equal={exact} "
                   f"max_abs_err={err!r} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-            if err > tol:
-                raise AssertionError(f"{name} {label}: max_abs_err {err} > {tol}")
+            if not exact:
+                raise AssertionError(f"{name} {label}: kernel differs from the plain "
+                                     f"version (max_abs_err {err})")
             record(name, "dafs_tpu_torch/csrc/pairhmm.cu", replaces, err, ms,
-                   plain_ms, pairhmm_bound(args, name == "pairhmm_forward"))
+                   plain_ms, pairhmm_bound(args, name))
+            # what the passes are judged against: the chain of diagonals alone
+            rows[name]["floor_ms"] = None if name == "pairhmm_posterior" else floor_ms
+            rows[name]["launched_by"] = "pairhmm_cuda.forward_backward_posterior"
+            if floor_ms and name != "pairhmm_posterior":
+                print(f"  dependency floor {floor_ms:.4f} ms; kernel at {ms / floor_ms:.2f} times it")
+        # base codes to masked posteriors: the three kernels, against the
+        # plain versions end to end and beside the eager posterior step
+        want = pairhmm_plain(args, tab)[2]
+        exact, err = same((pairhmm.forward_backward_posterior(*args, tab),), (want,))
+        path_ms = cuda_ms(lambda: pairhmm.forward_backward_posterior(*args, tab), 20)
+        eager_ms = cuda_ms(lambda: pairhmm.posterior(fm, fcap, bm, bcap, *lens, tab), 5)
+        print(f"kernel pairhmm codes to posteriors B={args[0].shape[0]} {label}: "
+              f"bit-equal={exact} {path_ms:.4f} ms (K1 beside K2, then the posterior "
+              f"kernel); the eager posterior step alone {eager_ms:.4f} ms")
+        if not exact:
+            raise AssertionError(f"pairhmm posteriors {label}: kernels differ from the "
+                                 f"plain versions (max_abs_err {err})")
+    stress_pairhmm(rng, dev, tab)
 
     # the padded lengths of the main path: RF00005's merges, RF00017's
     # merges, and RF00017's final structure (383 columns)
@@ -385,6 +503,7 @@ def kernels():
     return {
         "pairhmm_forward": pairhmm_cuda.FORWARD,
         "pairhmm_backward": pairhmm_cuda.BACKWARD,
+        "pairhmm_posterior": pairhmm_cuda.POSTERIOR,
         "nussinov": nussinov_cuda.DECODE,
         "nw": nw_cuda.DECODE,
     }
@@ -439,6 +558,7 @@ def slice_phase(dev):
     for fa_name, snap_name in (("RF00005_0.fa", "rf00005_default_tpu.txt"),
                                ("RF00017_4.fa", "rf00017_default_tpu.txt")):
         fa = read_fasta(fa_name)
+        before = {name: k.launches for name, k in kernels().items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = align_and_fold(fa, device=dev)
@@ -447,6 +567,9 @@ def slice_phase(dev):
         phases = ", ".join(f"{k} {v:.3f}s" for k, v in res.phase_seconds.items())
         print(f"slice {fa_name}: {wall:.3f}s wall; {phases}")
         consensus_summary(fa_name, res.consensus_calls)
+        for name, k in kernels().items():
+            if k.launches <= before[name]:
+                raise AssertionError(f"{fa_name}: kernel {name} was not launched")
         check_rows(res, fa)
         snap, snap_ss, snap_names, snap_rows = read_snapshot(snap_name)
         if NUM.sub("#", res.tree) != NUM.sub("#", snap):

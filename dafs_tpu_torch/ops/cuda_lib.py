@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels (`dafs_tpu_torch/csrc/*.cu`).
 
-All kernel sources compile with one nvcc call into one shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers, so the build takes
-seconds).  The build happens at first use, from the sources in the checkout
-only, into `build/dafs_tpu_torch/` beside the package; the file name carries
-a hash of the sources and flags, so an edited source is rebuilt.
+All kernel sources compile, one nvcc process each and all at once, into one
+shared library with a plain C interface, loaded with ctypes (no PyTorch
+headers, so the build takes seconds).  The build happens at first use, from
+the sources in the checkout only, into `build/dafs_tpu_torch/` beside the
+package; the file name carries a hash of the sources and flags, so an edited
+source is rebuilt.
 
 Flags: `sm_90a` (Hopper) and `-fmad=false`.  The ProbCons LOG_ADD and EXP
 polynomials must round every multiply and add separately, as the plain
@@ -34,6 +35,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
+_COMPILE_FLAGS = [f for f in NVCC_FLAGS if f != "-shared"]
 
 _LIB = None
 
@@ -61,10 +63,17 @@ def build() -> str:
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *sources],
-            check=True,
-        )
+        objects = [f"{tmp}.{os.path.basename(p)}.o" for p in sources]
+        procs = [
+            subprocess.Popen([_nvcc(), *_COMPILE_FLAGS, "-I", CSRC_DIR, "-c", "-o", o, p])
+            for p, o in zip(sources, objects)
+        ]
+        failed = [p for p, proc in zip(sources, procs) if proc.wait() != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}")
+        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *objects], check=True)
+        for o in objects:
+            os.remove(o)
         os.replace(tmp, out)
     return out
 

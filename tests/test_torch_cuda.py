@@ -44,7 +44,7 @@ def _decoder_args(dev, rng, L=64):
 
 
 @pytest.mark.parametrize("module,attr", [
-    (pairhmm_cuda, "FORWARD"), (pairhmm_cuda, "BACKWARD"),
+    (pairhmm_cuda, "FORWARD"), (pairhmm_cuda, "BACKWARD"), (pairhmm_cuda, "POSTERIOR"),
     (nussinov_cuda, "DECODE"), (nw_cuda, "DECODE"),
 ])
 def test_broken_library_raises(module, attr, dev, monkeypatch):
@@ -58,7 +58,8 @@ def test_broken_library_raises(module, attr, dev, monkeypatch):
     sm, lens, nw_args = _decoder_args(dev, rng)
     with pytest.raises(AttributeError):
         if module is pairhmm_cuda:
-            run = pairhmm.forward if attr == "FORWARD" else pairhmm.backward
+            run = {"FORWARD": pairhmm.forward, "BACKWARD": pairhmm.backward,
+                   "POSTERIOR": pairhmm.forward_backward_posterior}[attr]
             run(*_pairhmm_args(dev, rng), pairhmm.tables(dev))
         elif module is nussinov_cuda:
             nussinov.decode(sm, lens)
@@ -71,8 +72,11 @@ def test_kernels_match_plain_versions(dev):
     rng = np.random.default_rng(1)
     args = _pairhmm_args(dev, rng)
     tab = pairhmm.tables(dev)
-    for got, want in ((pairhmm.forward(*args, tab), pairhmm.forward_plain(*args, tab)),
-                      (pairhmm.backward(*args, tab), pairhmm.backward_plain(*args, tab))):
+    fwd, bwd = pairhmm.forward_plain(*args, tab), pairhmm.backward_plain(*args, tab)
+    post = pairhmm.posterior(*fwd, *bwd, args[1], args[3], tab)
+    for got, want in ((pairhmm.forward(*args, tab), fwd), (pairhmm.backward(*args, tab), bwd),
+                      ((pairhmm.forward_backward_posterior(*args, tab),), (post,)),
+                      ((pairhmm_cuda.posterior(*fwd, *bwd, args[1], args[3], tab),), (post,))):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     sm, lens, nw_args = _decoder_args(dev, rng)
@@ -90,6 +94,19 @@ def test_wrappers_reject_bad_inputs(dev):
         nw_cuda.decode(torch.zeros((1, 8, 8)), torch.zeros((1, 9), dtype=torch.int32),
                        torch.zeros((1, 9), dtype=torch.int32),
                        torch.tensor([8], dtype=torch.int32), torch.tensor([8], dtype=torch.int32))
+    tab = pairhmm.tables(dev)
+    args = _pairhmm_args(dev, np.random.default_rng(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        pairhmm_cuda.forward_backward_posterior(*(a.cpu() for a in args), pairhmm.tables("cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        pairhmm_cuda.posterior(torch.zeros((1, 9, 9)), torch.zeros((1, 6)), torch.zeros((1, 9, 9)),
+                               torch.zeros((1, 3)), *(torch.tensor([8], dtype=torch.int32),) * 2,
+                               pairhmm.tables("cpu"))
+    with pytest.raises(ValueError, match="int32"):
+        pairhmm_cuda.forward_backward_posterior(args[0].long(), *args[1:], tab)
+    fm, fcap = pairhmm_cuda.forward(*args, tab)
+    with pytest.raises(ValueError, match="bcap"):
+        pairhmm_cuda.posterior(fm, fcap, fm, fcap, args[1], args[3], tab)
 
 
 @pytest.mark.parametrize("seqs", [
@@ -170,6 +187,63 @@ def test_nussinov_stress_matches_plain(B, L, short, dev):
 def test_nw_stress_matches_plain(B, L1, L2, short, dev):
     args = _nw_stress(dev, np.random.default_rng(B * 1000 + L1 + L2), B, L1, L2, short)
     _equal(nw.decode(*args), nw.decode_plain(*args))
+
+
+def _random_pairs(dev, rng, lens1, lens2, l1max, l2max):
+    def seqs(lens):
+        return ["".join(rng.choice(list("ACGU"), size=int(n))) for n in lens]
+    c1, n1 = pairhmm.encode_batch(seqs(lens1), l1max)
+    c2, n2 = pairhmm.encode_batch(seqs(lens2), l2max)
+    return [torch.from_numpy(a).to(dev) for a in (c1, n1, c2, n2)]
+
+
+def _pairhmm_equal(args, tab):
+    fwd, bwd = pairhmm.forward_plain(*args, tab), pairhmm.backward_plain(*args, tab)
+    _equal(pairhmm_cuda.forward(*args, tab), fwd)
+    _equal(pairhmm_cuda.backward(*args, tab), bwd)
+    _equal((pairhmm_cuda.forward_backward_posterior(*args, tab),),
+           (pairhmm.posterior(*fwd, *bwd, args[1], args[3], tab),))
+
+
+@pytest.mark.parametrize("case", ["ragged", "96x320", "320x96", "one pair"])
+def test_pairhmm_stress_matches_plain(case, dev):
+    """True lengths around a warp's 32 rows (and 0) in one batch, more
+    columns than rows and the reverse, one pair: bit-equal passes and
+    posteriors."""
+    rng = np.random.default_rng(["ragged", "96x320", "320x96", "one pair"].index(case))
+    n = rng.integers
+    args = {
+        "ragged": lambda: _random_pairs(dev, rng, [1, 2, 31, 32, 33, 64, 0, 64],
+                                        [64, 33, 32, 31, 2, 1, 9, 64], 64, 64),
+        "96x320": lambda: _random_pairs(dev, rng, n(60, 97, 6), n(200, 321, 6), 96, 320),
+        "320x96": lambda: _random_pairs(dev, rng, n(200, 321, 6), n(60, 97, 6), 320, 96),
+        "one pair": lambda: _random_pairs(dev, rng, [77], [91], 96, 96),
+    }[case]()
+    _pairhmm_equal(args, pairhmm.tables(dev))
+
+
+def test_pairhmm_fifty_sequence_family(dev):
+    """1225 pairs at L <= 96: several waves of blocks."""
+    rng = np.random.default_rng(50)
+    args = _random_pairs(dev, rng, rng.integers(60, 97, 1225), rng.integers(60, 97, 1225), 96, 96)
+    _pairhmm_equal(args, pairhmm.tables(dev))
+
+
+def test_pairhmm_largest_rows_and_just_above(dev):
+    """K1/K2 take up to MAX_IMAX rows (32 warps of a block) and MAX_COLS
+    columns; one above either raises."""
+    rng = np.random.default_rng(4)
+    tab = pairhmm.tables(dev)
+    L = pairhmm_cuda.MAX_IMAX - 1
+    _pairhmm_equal(_random_pairs(dev, rng, [L, 700], [40, 64], L, 64), tab)
+    over = _random_pairs(dev, rng, [5], [5], L + 1, 64)
+    with pytest.raises(ValueError, match="padded lengths"):
+        pairhmm_cuda.forward(*over, tab)
+    with pytest.raises(ValueError, match="padded lengths"):
+        pairhmm_cuda.forward_backward_posterior(*over, tab)
+    wide = _random_pairs(dev, rng, [5], [5], 32, pairhmm_cuda.MAX_COLS)
+    with pytest.raises(ValueError, match="padded lengths"):
+        pairhmm_cuda.backward(*wide, tab)
 
 
 def test_largest_shapes_and_just_above(dev):

@@ -12,7 +12,9 @@ millions of eager ops takes the profiler longer to process than the run)
 for the device busy time (the union of all device activity intervals) and
 the device time by kernel name.  The idle share is 1 - busy / wall of that
 profiled run, and also against the median wall.  Also reports whether
-every run printed the same alignment and structure.
+every run printed the same alignment and structure, and traces the align
+phase alone (`ProbCons.all_pairs`): every device kernel and copy it runs,
+on one line, with the count of those that are not the port's own kernels.
 Writes the whole report as JSON to `chiprun_out/torch_profile.json` and a
 summary to standard output.  Needs a card; imports nothing of JAX.
 """
@@ -62,6 +64,30 @@ def device_table(prof, top=12):
             rows.append((a.key, t * 1e-3, a.count))
     rows.sort(key=lambda r: -r[1])
     return [dict(name=k, ms=ms, count=c) for k, ms, c in rows[:top]]
+
+
+def align_trace(name):
+    """Device activity of a family's align phase alone: [{name, ms, count}],
+    and how many of the kernels are not hand-written ones of the port.
+    Traced before any whole run: a short window opened after a long
+    profiler session lost most of its events."""
+    import torch
+
+    from dafs_tpu_torch import load_fasta
+    from dafs_tpu_torch.models import align_models
+    from dafs_tpu_torch.pipeline import Options
+
+    fa = load_fasta(os.path.join(ROOT, "tests", "data", name))
+    model = align_models.ProbCons(Options().th_a)
+    model.all_pairs(fa, "cuda")  # warm-up
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        model.all_pairs(fa, "cuda")
+        torch.cuda.synchronize()
+    table = device_table(prof, top=50)
+    other = [r for r in table
+             if "pairhmm_" not in r["name"] and not r["name"].lower().startswith("memcpy")]
+    return table, sum(r["count"] for r in other)
 
 
 def run_family(name, reps):
@@ -118,8 +144,10 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     report = dict(card=smi, device=torch.cuda.get_device_name(0), families=[])
+    traces = {name: align_trace(name) for name in args.families.split(",")}
     for name in args.families.split(","):
         r = run_family(name, args.reps)
+        r["align_kernels"], r["align_other_kernels"] = traces[name]
         report["families"].append(r)
         print(f"{name}: wall median {r['wall_median']:.3f}s "
               f"[{min(r['walls']):.3f}-{max(r['walls']):.3f}] over {args.reps}; "
@@ -135,6 +163,9 @@ def main() -> int:
               f"(against the median wall {r['idle_share_median_wall']:.3f})")
         for row in r["device_time_by_kernel"][:8]:
             print(f"    {row['ms']:10.1f} ms  x{row['count']:<7d} {row['name'][:90]}")
+        print("  align phase on the device: " + "; ".join(
+            f"{row['name'][:60]} x{row['count']} {row['ms']:.4f} ms" for row in r["align_kernels"])
+            + f"; kernels other than the port's own: {r['align_other_kernels']}")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "torch_profile.json"), "w") as fh:
         json.dump(report, fh, indent=1)
