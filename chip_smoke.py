@@ -31,7 +31,26 @@
    (count, seconds, slowest call, retry-ladder attempts), the largest
    tree-score difference, and the RF00017 similarity matrix against the
    recorded one.
-5. Prints the kernel table as one JSON line, then `{"ok": true, ...}` last.
+5. Paths phase: the slice's other configurations through the same entry
+   point, each with the launch counts set to 0 just before it and read just
+   after: path (a), `align_model="CONTRAlign", fold_model="CONTRAfold"`
+   (the consensus with Vienna's parameters), on RF00005 and RF00017, and
+   path (b), `use_bp_update=True, use_bp_update1=True` (bp-update with the
+   default models), on RF00005.  Path (a) must launch K3 and K4 (its
+   CONTRAfold fold and pair-CRF align are plain PyTorch on the card, and
+   no pair-HMM kernel runs), path (b) all five kernels.  Checks every row
+   and that `SS_cons` is balanced, and holds each tree topology to the
+   `dafs_tpu` reference recorded on the CPU
+   (`tests/snapshots/*_contrafold_contralign_cpu.txt`,
+   `rf00005_bp_update_cpu.txt`), printing how many `SS_cons` and row
+   columns agree with it; prints the wall, the phase split (for path (a)
+   the fold and align phases are the plain CONTRAfold and pair-CRF code),
+   the consensus calls and the launch counts.  Before the runs, holds the
+   plain CONTRAfold and pair-CRF code on the card to its CPU run on RF00005
+   inputs (1e-5 and 1e-6).
+6. Prints the kernel table as one JSON line (`launches` from the default
+   path's runs, `launches_by_path` from each run), then `{"ok": true, ...}`
+   last.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
 """
@@ -519,7 +538,7 @@ def check_rows(res, fa):
 
 
 def read_snapshot(name):
-    """(tree, SS_cons, names, rows) of a recorded TPU output."""
+    """(tree, SS_cons, names, rows) of a recorded output."""
     with open(os.path.join(SNAP, name)) as fh:
         lines = fh.read().splitlines()
     return lines[0].strip(), lines[2], [l[2:] for l in lines[3::2]], lines[4::2]
@@ -601,6 +620,101 @@ def slice_phase(dev):
     return counts
 
 
+# ------------------------------------------------------------------ paths --
+
+CONTRA = dict(align_model="CONTRAlign", fold_model="CONTRAfold")
+BP_UPDATE = dict(use_bp_update=True, use_bp_update1=True)
+# (path, align_and_fold keywords, family, dafs_tpu's CPU output of it)
+PATH_RUNS = [
+    ("a", CONTRA, "RF00005_0.fa", "rf00005_contrafold_contralign_cpu.txt"),
+    ("a", CONTRA, "RF00017_4.fa", "rf00017_contrafold_contralign_cpu.txt"),
+    ("b", BP_UPDATE, "RF00005_0.fa", "rf00005_bp_update_cpu.txt"),
+]
+PAIRHMM = ("pairhmm_forward", "pairhmm_backward", "pairhmm_posterior")
+
+
+def check_balanced(name, ss):
+    depth = 0
+    for ch in ss:
+        depth += {"(": 1, ")": -1}.get(ch, 0)
+        if depth < 0:
+            break
+    if depth != 0 or set(ss) - set("()."):
+        raise AssertionError(f"{name}: SS_cons is not a balanced structure: {ss}")
+
+
+def plain_models_on_card(dev):
+    """The plain CONTRAfold and pair-CRF code on the card against the same
+    calls on the CPU, at RF00005's bucket."""
+    from dafs_tpu_torch.ops import contrafold, paircrf
+
+    seqs = [f.seq for f in read_fasta("RF00005_0.fa")]
+    cf = [contrafold.batch_bp_posteriors(seqs[:2], 0.0, d) for d in (dev, "cpu")]
+    s1, s2 = [seqs[0], seqs[3], seqs[7]], [seqs[5], seqs[1], seqs[9]]
+    crf = [paircrf.batch_posteriors(s1, s2, 0.0, d) for d in (dev, "cpu")]
+    for name, (got, want), tol in (("CONTRAfold", cf, 1e-5), ("pair-CRF", crf, 1e-6)):
+        err = max(float(np.abs(g.astype(np.float64) - w).max()) for g, w in zip(got, want))
+        print(f"plain {name} on the card against its CPU run: max_abs_err={err!r} "
+              f"(bound {tol})")
+        if not err <= tol:
+            raise AssertionError(f"plain {name}: the card's run differs from the CPU's")
+
+
+def paths_phase(dev):
+    """Runs PATH_RUNS; returns {kernel name: {run label: launches}}."""
+    import torch
+
+    from dafs_tpu_torch import align_and_fold
+
+    plain_models_on_card(dev)
+    by_path = {name: {} for name in kernels()}
+    for path, kw, fa_name, ref_name in PATH_RUNS:
+        label = f"path ({path}) {fa_name}"
+        fa = read_fasta(fa_name)
+        for k in kernels().values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = align_and_fold(fa, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in kernels().items()}
+        for name, n in counts.items():
+            by_path[name][label] = n
+        phases = ", ".join(f"{k} {v:.3f}s" for k, v in res.phase_seconds.items())
+        print(f"{label}: {wall:.3f}s wall; {phases}")
+        if path == "a":
+            print(f"{label}: plain CONTRAfold (fold phase) {res.phase_seconds['fold']:.3f}s, "
+                  f"plain pair-CRF (align phase) {res.phase_seconds['align']:.3f}s")
+        consensus_summary(label, res.consensus_calls)
+        print(f"{label} launch counts: {counts}")
+        need = ("nussinov", "nw") + (PAIRHMM if path == "b" else ())
+        for name in need:
+            if counts[name] <= 0:
+                raise AssertionError(f"{label}: kernel {name} was not launched")
+        if path == "a" and any(counts[name] for name in PAIRHMM):
+            raise AssertionError(f"{label}: a pair-HMM kernel ran under CONTRAlign")
+        check_rows(res, fa)
+        check_balanced(label, res.ss_cons)
+        ref, ref_ss, ref_names, ref_rows = read_snapshot(ref_name)
+        if NUM.sub("#", res.tree) != NUM.sub("#", ref):
+            raise AssertionError(f"{label} tree topology differs from dafs_tpu's:\n"
+                                 f"{res.tree}\n{ref}")
+        digits = max(abs(float(a) - float(b)) for a, b in
+                     zip(NUM.findall(res.tree), NUM.findall(ref)))
+        if res.names != ref_names:
+            raise AssertionError(f"{label}: names differ from the reference's")
+        ss_ok, ss_all = columns_agreeing(res.ss_cons, ref_ss)
+        row_ok = [columns_agreeing(r, w) for r, w in zip(res.rows, ref_rows)]
+        print(f"{label} tree topology equals dafs_tpu's (CPU); largest score difference "
+              f"{digits!r}; SS_cons {ss_ok} of {ss_all} columns agree (lengths "
+              f"{len(res.ss_cons)} and {len(ref_ss)}); rows {sum(a for a, _ in row_ok)} of "
+              f"{sum(b for _, b in row_ok)} columns agree, "
+              f"{sum(r == w for r, w in zip(res.rows, ref_rows))} of {len(ref_rows)} rows "
+              f"identical; SS_cons {res.ss_cons}")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -616,8 +730,10 @@ def main() -> int:
     print(f"built and loaded {cuda_lib.build()} in {time.perf_counter() - t0:.1f}s")
     rows = kernel_phase(dev)
     counts = slice_phase(dev)
+    by_path = paths_phase(dev)
     for name, n in counts.items():
         rows[name]["launches"] = n
+        rows[name]["launches_by_path"] = by_path[name]
     print(smi)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

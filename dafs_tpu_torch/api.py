@@ -7,11 +7,12 @@
 '((((....))))'
 
 The port of `dafs_tpu.align_and_fold` for the slice that is ported so far:
-DAFS's default path, ProbCons + BL* McCaskill with the RNAalifold consensus
-mixed into every merge and into the final structure.  `use_alifold=False`
-drops the mix from the merges only, as in the JAX package.  Keyword
-arguments override `pipeline.Options` fields; any option outside the slice
-raises `NotImplementedError` naming the ROADMAP item that brings it.
+the ProbCons or CONTRAlign alignment model, the BL* or Vienna McCaskill or
+the CONTRAfold fold model, bp-update, and the RNAalifold consensus mixed
+into every merge and into the final structure.  `use_alifold=False` drops
+the mix from the merges only, as in the JAX package.  Keyword arguments
+override `pipeline.Options` fields; any option outside the slice raises
+`NotImplementedError` naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -73,26 +74,25 @@ def align_and_fold(
       names: optional names (defaults to seq1..seqN for raw strings).
       device: torch device; "cuda" (the default) raises when no card is
         present.
+      align_model: "ProbCons" or "CONTRAlign".
+      fold_model: "Boltzmann", "Vienna" or "CONTRAfold"; the consensus uses
+        the BL* parameters under "Boltzmann" and Vienna's otherwise.
       use_alifold: mix the RNAalifold consensus into every merge (the final
         structure always mixes it in).
       **options: overrides for pipeline.Options fields (w, t_max, eta0, th_a,
-        th_s, th_s1, w_pct_a, w_pct_s, ...).
+        th_s, th_s1, w_pct_a, w_pct_s, use_bp_update, use_bp_update1, ...).
     """
     from dafs_tpu_torch import pipeline
     from dafs_tpu_torch.models import align_models, fold_models
     from dafs_tpu_torch.ops import alifold
     from dafs_tpu_torch.typedefs import CUTOFF
 
-    if align_model != "ProbCons":
-        raise NotImplementedError(pipeline.NOT_PORTED["align_model"])
-    if fold_model != "Boltzmann":
-        raise NotImplementedError(pipeline.NOT_PORTED["fold_model"])
     opts = dataclasses.replace(pipeline.Options(**options), use_alifold=use_alifold)
     d = pipeline.Dafs(
-        align_models.ProbCons(opts.th_a),
-        fold_models.RNAfold(True, CUTOFF),
+        align_models.by_name(align_model, opts.th_a),
+        fold_models.by_name(fold_model, CUTOFF),
         opts,
-        alifold_model=alifold.Alifold(0.0, bl=True),
+        alifold_model=alifold.Alifold(0.0, bl=fold_model == "Boltzmann"),
         device=device,
     )
     d.run(_records(seqs_or_path, names))

@@ -1,7 +1,9 @@
 """dafs-compatible command line interface (src/dafs.cpp:1603-1779), port of
 `dafs_tpu/cli.py`.
 
-Usage: python -m dafs_tpu_torch.cli [--no-alifold] [--device cuda] FILE
+Usage: python -m dafs_tpu_torch.cli [-a ProbCons|CONTRAlign]
+       [-s Boltzmann|Vienna|CONTRAfold] [--bp-update] [--bp-update1]
+       [--no-alifold] [--device cuda] FILE
 
 The option surface is the JAX CLI's, plus `--device`.  Without options it
 runs DAFS's default path.  `--no-alifold` drops the RNAalifold consensus
@@ -172,10 +174,6 @@ def main(argv=None) -> int:
         raise NotImplementedError(pipeline.NOT_PORTED["param_file"])
     if args.align_aux or args.fold_aux:
         raise NotImplementedError(pipeline.NOT_PORTED["aux"])
-    if args.align_model != "ProbCons":
-        raise NotImplementedError(pipeline.NOT_PORTED["align_model"])
-    if args.fold_model == "CONTRAfold":
-        raise NotImplementedError(pipeline.NOT_PORTED["fold_model"])
     opts = options_from_args(args)
     opts.check_slice()
     set_verbosity(args.verbose)
@@ -183,12 +181,11 @@ def main(argv=None) -> int:
     # The final decode always mixes in the consensus regardless of
     # --no-alifold (src/dafs.cpp:81-82,1696), so the model is built
     # unconditionally; --no-alifold only gates the merge steps.
-    bl = args.fold_model == "Boltzmann"
     d = pipeline.Dafs(
-        align_models.ProbCons(args.align_th),
-        fold_models.RNAfold(bl, CUTOFF),
+        align_models.by_name(args.align_model, args.align_th),
+        fold_models.by_name(args.fold_model, CUTOFF),
         opts,
-        alifold_model=alifold.Alifold(0.0, bl=bl),
+        alifold_model=alifold.Alifold(0.0, bl=args.fold_model == "Boltzmann"),
         device=args.device,
     )
     sys.stdout.write(d.run(load_fasta(args.input)))

@@ -1,9 +1,10 @@
 """Alignment models: producers of match-probability matrices.
 
-Port of `dafs_tpu/models/align_models.py` for the ProbCons model (the
-default `-a ProbCons`): for every unordered sequence pair, a dense match
-posterior matrix thresholded at `th` (entries kept strictly greater), all
-N*(N-1)/2 pairs batched into one padded run on `device`.
+Port of `dafs_tpu/models/align_models.py` for the ProbCons pair-HMM (the
+default `-a ProbCons`) and the CONTRAlign pair-CRF (`-a CONTRAlign`): for
+every unordered sequence pair, a dense match posterior matrix thresholded at
+`th` (entries kept strictly greater), all N*(N-1)/2 pairs batched into one
+padded run on `device`.
 """
 
 from __future__ import annotations
@@ -45,3 +46,20 @@ class ProbCons(AlignModel):
         from dafs_tpu_torch.ops import pairhmm
 
         return pairhmm.batch_posteriors(seqs1, seqs2, self.th, device)
+
+
+class CONTRAlign(AlignModel):
+    """CONTRAlign pair-CRF (-a CONTRAlign)."""
+
+    def batch_pair_posteriors(self, seqs1, seqs2, device):
+        from dafs_tpu_torch.ops import paircrf
+
+        return paircrf.batch_posteriors(seqs1, seqs2, self.th, device)
+
+
+def by_name(name: str, th: float) -> AlignModel:
+    """The model of `-a NAME`."""
+    models = {"ProbCons": ProbCons, "CONTRAlign": CONTRAlign}
+    if name not in models:
+        raise ValueError(f"unknown alignment model {name!r}; one of {sorted(models)}")
+    return models[name](th)

@@ -1,9 +1,13 @@
 """Folding models: producers of base-pair probability matrices.
 
 Port of `dafs_tpu/models/fold_models.py` for the McCaskill model (`-s
-Boltzmann`, the default, and `-s Vienna`, which without a parameter file
-uses the same tables): per-sequence dense upper-triangular BP posterior
-matrices thresholded at `th` (strictly greater kept), computed on `device`.
+Boltzmann`, the default, and `-s Vienna`) and the CONTRAfold model (`-s
+CONTRAfold`): per-sequence dense upper-triangular BP posterior matrices
+thresholded at `th` (strictly greater kept), computed on `device`.
+Constrained runs re-fold under a structure constraint string for the
+bp-update mechanism (src/dafs.cpp:609-711): '(' ')' a forced pair, '?' free;
+'.' is forced unpaired for CONTRAfold, while McCaskill reads it as Vienna
+does, as free ('x' is its unpaired mark).
 """
 
 from __future__ import annotations
@@ -17,9 +21,10 @@ class FoldModel:
     def __init__(self, th: float):
         self.th = th
 
-    def batch_bp_posteriors(self, seqs, device, th=None) -> list[np.ndarray]:
+    def batch_bp_posteriors(self, seqs, device, th=None, constraints=None) -> list[np.ndarray]:
         """Posteriors with entries strictly greater than `th` kept (the
-        model's threshold by default)."""
+        model's threshold by default), one constraint string per sequence
+        when `constraints` is given."""
         raise NotImplementedError
 
     def all_seqs(self, fa: list[Fasta], device, posts=None) -> np.ndarray:
@@ -46,8 +51,29 @@ class RNAfold(FoldModel):
         super().__init__(th)
         self.bl = bl
 
-    def batch_bp_posteriors(self, seqs, device, th=None):
+    def batch_bp_posteriors(self, seqs, device, th=None, constraints=None):
         from dafs_tpu_torch.ops import mccaskill
 
         return mccaskill.batch_bp_posteriors_fast(
-            seqs, self.th if th is None else th, device, bl=self.bl)
+            seqs, self.th if th is None else th, device, bl=self.bl,
+            constraints=constraints)
+
+
+class CONTRAfold(FoldModel):
+    """CONTRAfold v2 log-linear model (-s CONTRAfold)."""
+
+    def batch_bp_posteriors(self, seqs, device, th=None, constraints=None):
+        from dafs_tpu_torch.ops import contrafold
+
+        return contrafold.batch_bp_posteriors(
+            seqs, self.th if th is None else th, device, constraints=constraints)
+
+
+def by_name(name: str, th: float) -> FoldModel:
+    """The model of `-s NAME`: McCaskill with the BL* parameters
+    ("Boltzmann") or Vienna's ("Vienna"), or CONTRAfold."""
+    if name == "Boltzmann" or name == "Vienna":
+        return RNAfold(name == "Boltzmann", th)
+    if name == "CONTRAfold":
+        return CONTRAfold(th)
+    raise ValueError(f"unknown fold model {name!r}; one of Boltzmann, CONTRAfold, Vienna")

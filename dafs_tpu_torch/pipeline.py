@@ -5,13 +5,15 @@ Host Python orchestrates (guide tree, projections, output); the numerics
 (posterior models, PCT products, similarity DP, RNAalifold consensus, the
 DD subgradient loop, final structure decode) run on `device`.
 
-The ported slice is DAFS's default path: `Dafs(ProbCons(th_a),
-RNAfold(True, CUTOFF), Options(), alifold_model=Alifold(0.0, bl=True))`
-equals the JAX package's `Dafs` of the same arguments.  The consensus is
-mixed into every merge when `Options.use_alifold` is set, and into the
-final structure whenever an `alifold_model` is given (use_alifold1_ is
-always true in the reference).  Options outside the slice raise
-`NotImplementedError` naming the ROADMAP item that brings them.
+The ported slice: `Dafs(align_model, fold_model, Options(...),
+alifold_model=Alifold(0.0, bl=...))` with the ProbCons or CONTRAlign
+alignment model, the McCaskill (BL* or Vienna) or CONTRAfold fold model,
+and bp-update (`use_bp_update`, `use_bp_update1`), equals the JAX package's
+`Dafs` of the same arguments.  The consensus is mixed into every merge when
+`Options.use_alifold` is set, and into the final structure whenever an
+`alifold_model` is given (use_alifold1_ is always true in the reference).
+Options outside the slice raise `NotImplementedError` naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -25,16 +27,15 @@ import torch
 
 from dafs_tpu_torch import consistency, dd, guide_tree, projection
 from dafs_tpu_torch.fasta import Fasta
+from dafs_tpu_torch.models.fold_models import RNAfold
 from dafs_tpu_torch.ops import nussinov
-from dafs_tpu_torch.typedefs import AlnRow, gapped_seq
+from dafs_tpu_torch.typedefs import CUTOFF, AlnRow, gapped_seq
 from dafs_tpu_torch.utils.log import logger
 
 F = np.float32
 
 _QUEUE = "is not ported yet (ROADMAP.md, port queue: {})"
 NOT_PORTED = {
-    "use_bp_update": "--bp-update " + _QUEUE.format("bp-update"),
-    "use_bp_update1": "--bp-update1 " + _QUEUE.format("bp-update"),
     "fold_decoder": "--fold-decoder IPknot / --ipknot " + _QUEUE.format("IPknot"),
     "verbose": "-v 2 (per-iteration dumps) " + _QUEUE.format("-v 2"),
     "t_max": "-m 0 (the exact ILP) " + _QUEUE.format("-m 0"),
@@ -43,8 +44,6 @@ NOT_PORTED = {
     "aux": "reading or writing aux files " + _QUEUE.format("aux files"),
     "dd_update": "the adagrad and adam DD update rules " + _QUEUE.format("adagrad/adam"),
     "dd_host": "the host-loop DD with native decoders " + _QUEUE.format("host DD"),
-    "align_model": "-a CONTRAlign " + _QUEUE.format("CONTRAlign"),
-    "fold_model": "-s CONTRAfold " + _QUEUE.format("CONTRAfold"),
     "param_file": "-P (parameter files) " + _QUEUE.format("-P"),
 }
 
@@ -74,8 +73,6 @@ class Options:
     def check_slice(self) -> None:
         """Raise NotImplementedError for any option outside the slice."""
         bad = {
-            "use_bp_update": self.use_bp_update,
-            "use_bp_update1": self.use_bp_update1,
             "fold_decoder": self.fold_decoder != "Nussinov",
             "verbose": self.verbose >= 2,
             "t_max": self.t_max == 0,
@@ -132,15 +129,74 @@ class Dafs:
             ali = self.alifold.consensus_bp(aln, self.fa, self.device)
         return projection.average_basepairing_probability(self.bp, aln, ali)
 
+    def _update_bp(self, p, ss, sstr, aln, use_alifold) -> np.ndarray:
+        """Constrained BP re-estimation (src/dafs.cpp:609-711): every
+        sequence of `aln` is folded again under the structure `ss` decoded
+        from `p`, once per bracket level of `th_s`, and the results averaged;
+        with the consensus, its constrained runs are averaged in too."""
+        L = int(aln[0].mask.shape[0])
+        N = len(aln)
+        plevel = len(self.o.th_s)
+        out = np.zeros((L, L), dtype=np.float32)
+        left_brackets = "([{<ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+        # every (sequence, constraint) re-fold goes into one batched call
+        tasks: list[tuple[int, np.ndarray, str]] = []
+        for row in aln:
+            s = row.seq_id
+            ls = len(self.fa[s].seq)
+            idx = np.nonzero(row.mask)[0]
+            rev = np.full(L, -1, dtype=np.int64)
+            rev[idx] = np.arange(len(idx))
+            for plv in range(plevel):
+                con = ["?"] * ls
+                for i in range(L):
+                    if ss[i] >= 0 and rev[i] >= 0 and rev[ss[i]] >= 0:
+                        if sstr[i] == left_brackets[plv]:
+                            con[rev[i]] = "("
+                            con[rev[ss[i]]] = ")"
+                        else:
+                            con[rev[i]] = con[rev[ss[i]]] = "."
+                tasks.append((s, idx, "".join(con)))
+        bps = self.s_model.batch_bp_posteriors(
+            [self.fa[s].seq for s, _, _ in tasks], self.device,
+            constraints=[c for _, _, c in tasks],
+        )
+        for (s, idx, _), bp in zip(tasks, bps):
+            out[np.ix_(idx, idx)] += np.float32(bp / F(N))
+        if use_alifold and self.alifold is not None:
+            for plv in range(plevel):
+                con = ["?"] * L
+                for i in range(L):
+                    if ss[i] >= 0:
+                        if sstr[i] == left_brackets[plv]:
+                            con[i] = "("
+                            con[ss[i]] = ")"
+                        else:
+                            con[i] = con[ss[i]] = "."
+                out += self.alifold.consensus_bp(aln, self.fa, self.device, "".join(con))
+            iu = np.triu_indices(L, 1)
+            out[iu] = np.float32(out[iu] / F(2.0))
+        out[np.tril_indices(L, 0)] = 0.0
+        out[out <= CUTOFF] = 0.0
+        return out
+
     # -- merge ------------------------------------------------------------
 
     def _merge_inputs(self, aln1, aln2):
         """Host prep of one merge: averaged p_x/p_y (with the consensus mix
-        when `use_alifold` is set) and p_z (src/dafs.cpp:913-934)."""
-        p_x = self._avg_bp(aln1, self.o.use_alifold)
-        p_y = self._avg_bp(aln2, self.o.use_alifold)
+        when `use_alifold` is set, then bp-update when `use_bp_update` is)
+        and p_z (src/dafs.cpp:913-934).  The order of the consensus calls is
+        the JAX package's (x, its update, y, its update): the pf-scale warm
+        start is shared by constrained and unconstrained calls of one shape."""
+        ps = []
+        for aln in (aln1, aln2):
+            p = self._avg_bp(aln, self.o.use_alifold)
+            if self.o.use_bp_update:
+                ss0, str0 = self._decode_structure(p, self.o.th_s)
+                p = self._update_bp(p, ss0, str0, aln, self.o.use_alifold)
+            ps.append(p)
         p_z = projection.average_matching_probability(self.mp, aln1, aln2)
-        return p_x, p_y, p_z
+        return ps[0], ps[1], p_z
 
     @staticmethod
     def _merge_finish(x, y, z, aln1, aln2):
@@ -223,10 +279,12 @@ class Dafs:
 
         # A group of one ungapped sequence takes its consensus from this same
         # McCaskill run, before the fold threshold (the single-sequence
-        # route of ops/alifold.py), when both models share a parameter set.
+        # route of ops/alifold.py), when the fold model is McCaskill under
+        # the consensus's parameter set.
         seqs = [f.seq for f in fa]
         posts = None
-        if self.alifold is not None and self.alifold.bl == self.s_model.bl:
+        if (self.alifold is not None and isinstance(self.s_model, RNAfold)
+                and self.alifold.bl == self.s_model.bl):
             posts = self.s_model.batch_bp_posteriors(seqs, self.device, th=0.0)
         self.bp = self.s_model.all_seqs(fa, self.device, posts)
         if self.alifold is not None:
@@ -257,6 +315,10 @@ class Dafs:
         # always true in the reference
         p = self._avg_bp(aln, use_alifold=True)
         _phase("final avg_bp (+alifold)")
+        if self.o.use_bp_update1:
+            ss0, str0 = self._decode_structure(p, self.o.th_s1)
+            p = self._update_bp(p, ss0, str0, aln, use_alifold=True)
+            _phase("final bp-update")
         ss, sstr = self._decode_structure(p, self.o.th_s1)
         _phase("final decode")
 

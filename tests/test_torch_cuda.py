@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from dafs_tpu_torch.ops import (
-    alifold, cuda_lib, nussinov, nussinov_cuda, nw, nw_cuda, pairhmm, pairhmm_cuda,
+    alifold, contrafold, cuda_lib, nussinov, nussinov_cuda, nw, nw_cuda, paircrf, pairhmm,
+    pairhmm_cuda,
 )
 
 pytestmark = pytest.mark.cuda
@@ -124,6 +125,36 @@ def test_consensus_matches_cpu(seqs, dev):
     np.testing.assert_allclose(got.consensus(seqs, dev), want.consensus(seqs, "cpu"),
                                rtol=2e-4, atol=1e-6)
     assert [c["attempts"] for c in got.calls] == [c["attempts"] for c in want.calls]
+
+
+def _rna(rng, lens):
+    return ["".join(rng.choice(list("ACGU"), size=n)) for n in lens]
+
+
+def test_paircrf_matches_cpu(dev):
+    """The CONTRAlign pair-CRF (plain PyTorch on every device) on the card
+    against its CPU run, ragged and rectangular: within 1e-6, the bound it
+    holds against `dafs_tpu` on the CPU (tests/test_torch_contra.py)."""
+    rng = np.random.default_rng(2)
+    s1, s2 = _rna(rng, (5, 31, 33, 70, 2)), _rna(rng, (64, 32, 9, 75, 1))
+    for g, w in zip(paircrf.batch_posteriors(s1, s2, 0.0, dev),
+                    paircrf.batch_posteriors(s1, s2, 0.0, "cpu")):
+        np.testing.assert_allclose(g, w, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("constrained", [False, True])
+def test_contrafold_matches_cpu(constrained, dev):
+    """CONTRAfold (plain PyTorch on every device) on the card against its
+    CPU run over two buckets: within 1e-5, its bound against `dafs_tpu`."""
+    rng = np.random.default_rng(3)
+    seqs = _rna(rng, (20, 31, 45, 73))
+    cons = None
+    if constrained:
+        cons = ["(" + "?" * 3 + "." + "?" * (len(s) - 6) + ")" for s in seqs]
+    got = contrafold.batch_bp_posteriors(seqs, 0.0, dev, constraints=cons)
+    want = contrafold.batch_bp_posteriors(seqs, 0.0, "cpu", constraints=cons)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
 
 
 def _quarter_steps(rng, shape):

@@ -4,7 +4,8 @@ independence from JAX.
 The references are the JAX package's default path, `dafs_tpu.pipeline.Dafs(
 ProbCons(0.01), RNAfold(True, CUTOFF), Options(), alifold_model=Alifold(0.0,
 bl=True))`, the same without any consensus mix (`Options(use_alifold=False),
-alifold_model=None`), and the JAX CLI's `--no-alifold`.  They run in one
+alifold_model=None`), and the JAX CLI's `--no-alifold` and model and
+bp-update options (`CLI_OPTIONS`).  They run in one
 subprocess with XLA's CPU code generation capped below FMA
 (`--xla_cpu_max_isa=AVX`): by default XLA on the CPU contracts
 multiply-adds into fused multiply-adds, which the port (like the TPU) never
@@ -27,7 +28,7 @@ import torch
 
 import dafs_tpu_torch
 from dafs_tpu_torch import cli, pipeline
-from dafs_tpu_torch.fasta import Fasta
+from dafs_tpu_torch.fasta import Fasta, load_fasta
 from dafs_tpu_torch.models import align_models, fold_models
 from dafs_tpu_torch.typedefs import CUTOFF
 
@@ -81,13 +82,20 @@ for name, recs in args["families"].items():
                               opts, alifold_model=ali)
             d.run([Fasta(n, s) for n, s in recs])
         out[kind][name] = d.result
-alifold._SC_CACHE.clear()
-buf = io.StringIO()
-with force_single_device(), contextlib.redirect_stdout(buf):
-    cli.main(["--no-alifold", args["tiny_fa"]])
-out["cli_no_alifold"] = buf.getvalue()
+out["cli"] = {}
+for flags in [["--no-alifold"]] + args["cli_options"]:
+    alifold._SC_CACHE.clear()
+    buf = io.StringIO()
+    with force_single_device(), contextlib.redirect_stdout(buf):
+        cli.main([*flags, args["tiny_fa"]])
+    out["cli"][" ".join(flags)] = buf.getvalue()
 print(json.dumps(out))
 """
+
+# options that run on the tiny family through both CLIs (the API cases
+# below are held to the same JAX CLI runs)
+CLI_OPTIONS = [["-a", "CONTRAlign"], ["-s", "CONTRAfold"], ["-s", "Vienna"],
+               ["--bp-update"], ["--bp-update1"]]
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +105,7 @@ def jax_reference(tmp_path_factory):
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX")
     proc = subprocess.run(
         [sys.executable, "-c", _JAX_REFERENCE],
-        input=json.dumps(dict(families=FAMILIES, tiny_fa=str(tiny))),
+        input=json.dumps(dict(families=FAMILIES, tiny_fa=str(tiny), cli_options=CLI_OPTIONS)),
         capture_output=True, text=True, cwd=ROOT, env=env, timeout=900, check=True,
     )
     return json.loads(proc.stdout.strip().splitlines()[-1]), str(tiny)
@@ -138,15 +146,70 @@ def test_no_alifold_cli_matches_jax_cli(jax_reference, capsys):
     structure mixes it in, as in the JAX CLI."""
     want, tiny = jax_reference
     assert cli.main(["--no-alifold", "--device", "cpu", tiny]) == 0
-    assert capsys.readouterr().out == want["cli_no_alifold"]
+    assert capsys.readouterr().out == want["cli"]["--no-alifold"]
 
 
-def test_port_runs_without_jax():
+@pytest.mark.parametrize("flags,kw", [(f, None) for f in CLI_OPTIONS] + [
+    (["-a", "CONTRAlign"], dict(align_model="CONTRAlign")),
+    (["-s", "CONTRAfold"], dict(fold_model="CONTRAfold")),
+])
+def test_options_match_jax_cli(flags, kw, jax_reference, capsys):
+    """Each model and bp-update option runs on the tiny family through the
+    port's CLI (or, with `kw`, its API) and prints the JAX CLI's bytes."""
+    want, tiny = jax_reference
+    if kw is None:
+        assert cli.main([*flags, "--device", "cpu", tiny]) == 0
+        got = capsys.readouterr().out
+    else:
+        got = str(dafs_tpu_torch.align_and_fold(tiny, device="cpu", **kw))
+    _assert_valid_output(got)
+    assert got == want["cli"][" ".join(flags)]
+
+
+def test_api_vienna_equals_cli(tiny_fa, capsys):
+    """`fold_model="Vienna"` folds and forms the consensus with Vienna's
+    parameters (bl=False), as the CLI's `-s Vienna` does."""
+    assert cli.main(["-s", "Vienna", "--device", "cpu", tiny_fa]) == 0
+    res = dafs_tpu_torch.align_and_fold(tiny_fa, device="cpu", fold_model="Vienna")
+    assert str(res) == capsys.readouterr().out
+    from dafs_tpu_torch.ops import alifold
+
+    d = pipeline.Dafs(align_models.ProbCons(0.01), fold_models.RNAfold(False, CUTOFF),
+                      pipeline.Options(), alifold_model=alifold.Alifold(0.0, bl=False),
+                      device="cpu")
+    d.run(load_fasta(tiny_fa))
+    assert d.result["ss_cons"] == res.ss_cons and d.result["rows"] == res.rows
+    # both models under Vienna's parameters: leaf groups come from the fold stage
+    assert [c["route"] for c in res.consensus_calls].count("fold stage") == len(TINY)
+
+
+def test_fold_model_without_bl_runs():
+    """A fold model that is not McCaskill (CONTRAfold has no `bl`): its leaf
+    groups run the consensus's own McCaskill."""
+    from dafs_tpu_torch.ops import alifold
+
+    d = pipeline.Dafs(align_models.ProbCons(0.01), fold_models.CONTRAfold(CUTOFF),
+                      pipeline.Options(), alifold_model=alifold.Alifold(0.0, bl=False),
+                      device="cpu")
+    d.run([Fasta(n, s) for n, s in TINY])
+    routes = [c["route"] for c in d.result["consensus_calls"]]
+    assert routes.count("mccaskill") == len(TINY) and "fold stage" not in routes
+    assert len(d.result["ss_cons"]) == len(d.result["rows"][0])
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    dict(align_model="CONTRAlign", fold_model="CONTRAfold"),
+    dict(use_bp_update=True, use_bp_update1=True),
+])
+def test_port_runs_without_jax(kw):
+    """The default path, path (a) (CONTRAlign, CONTRAfold) and path (b)
+    (bp-update) with `jax` blocked: nothing of JAX or `dafs_tpu` loads."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import dafs_tpu_torch\n"
-        f"res = dafs_tpu_torch.align_and_fold({[s for _, s in TINY]!r}, device='cpu')\n"
+        f"res = dafs_tpu_torch.align_and_fold({[s for _, s in TINY]!r}, device='cpu', **{kw!r})\n"
         "assert not [m for m in sys.modules if m == 'dafs_tpu' or m.startswith('dafs_tpu.')]\n"
         "assert [c for c in res.consensus_calls if c['route'] == 'alifold']\n"
         "print(res.ss_cons)\n"
@@ -197,15 +260,11 @@ def test_cli_without_flags_runs(tiny_fa, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["-a", "CONTRAlign"],
-    ["-s", "CONTRAfold"],
     ["--ipknot"],
     ["--fold-decoder", "IPknot"],
     ["-m", "0"],
     ["-v", "2"],
     ["-r", "1"],
-    ["--bp-update"],
-    ["--bp-update1"],
     ["-f", "0.5"],
     ["--align-aux", "mp.txt"],
     ["--fold-aux", "bp.txt"],
@@ -219,10 +278,7 @@ def test_cli_options_outside_the_slice_raise(argv, tiny_fa):
         cli.main([*argv, "--device", "cpu", tiny_fa])
 
 
-@pytest.mark.parametrize("kw", [
-    dict(align_model="CONTRAlign"),
-    dict(fold_model="CONTRAfold"), dict(n_refinement=2), dict(dd_update="adam"),
-])
+@pytest.mark.parametrize("kw", [dict(n_refinement=2), dict(dd_update="adam")])
 def test_api_options_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dafs_tpu_torch.align_and_fold([s for _, s in TINY], device="cpu", **kw)
