@@ -48,9 +48,33 @@
    the consensus calls and the launch counts.  Before the runs, holds the
    plain CONTRAfold and pair-CRF code on the card to its CPU run on RF00005
    inputs (1e-5 and 1e-6).
-6. Prints the kernel table as one JSON line (`launches` from the default
-   path's runs, `launches_by_path` from each run), then `{"ok": true, ...}`
-   last.
+6. Length phase (between 3 and 4): each kernel's long variant, which the
+   wrappers choose past the old limits, just past them and at 2048
+   (K1/K2 and the posteriors at imax 1056 and 2048, B = 2; K3 at L 1056
+   and 2048, B = 1 and 2; K4 at 1056 x 1056, 800 x 992 and 2048 x 2048),
+   bit-equal to its plain version, with its time and bound; once at the
+   ceiling of 4096, timed and checked well formed (finite posteriors, a
+   nested structure, an increasing alignment); above it, the error must
+   name the ceiling.
+7. Solvers phase (last): the host merge solvers, counts set to 0 before
+   each run: (c) `--ipknot` and (d) `-m 0` on RF00005 with the options the
+   CLI builds, each tree topology held to `dafs_tpu`'s CPU output
+   (`tests/snapshots/rf00005_{ipknot,ilp}_cpu.txt`), every row its input
+   with gaps, every bracket level balanced, K4 launches equal to the host
+   DD iterations under (c) and none under (d), and under (d) `SS_cons` and
+   every row equal to the snapshot's; prints the agreeing columns, each
+   host DD merge's iterations and violations at exit, scipy's version and
+   the HiGHS binding, the wall and the phase split.  (e) `-v 2` on RF00005 with standard output captured: its
+   output equals the `dd_host=True` run's, one dump per iteration.  (f)
+   the RF00017 frozen replay (`tests/snapshots/rf00017_replay.npz`)
+   through the port's host DD with K3 and K4: tree line, `SS_cons` and
+   every row equal the frozen output.
+8. Prints the kernel table as one JSON line, then `{"ok": true, ...}`
+   last.  Every launch count in it was read after a run whose counts were
+   set to 0 just before: `launches` from the default path's two runs (the
+   slice phase, where the variants too are counted), `launches_by_path`
+   from each run of the paths and solvers phases, and for the variants
+   also `launches_length_phase`.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
 """
@@ -94,6 +118,20 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def once_ms(fn):
+    """Milliseconds of one call of `fn` (CUDA events), no warm-up."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
 
 
 def read_fasta(name):
@@ -429,7 +467,7 @@ def kernel_phase(dev):
     def record(name, source, replaces, err, ms, plain_ms, bnd):
         bound_ms, bound_by, bound_kind = bnd
         rows[name] = dict(name=name, route="cuda", source=source,
-                          replaces=replaces, launches=0, max_abs_err=err,
+                          replaces=replaces, max_abs_err=err,
                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, bound_kind=bound_kind,
                           library_ms=None)
@@ -513,6 +551,189 @@ def kernel_phase(dev):
     return rows
 
 
+# ----------------------------------------------------------------- length --
+# Past the main path kernels' old limits (imax 1024 rows for K1/K2, padded
+# L 1024 for K3, 1023 columns or a block's shared memory for K4) the
+# wrappers choose the long variants; up to the ceiling of 4096 no shape is
+# refused.
+
+LONG_KERNELS = {
+    "pairhmm_forward_long": ("pairhmm_cuda", "FORWARD_LONG", "dafs_tpu_torch/csrc/pairhmm.cu",
+                             "dafs_tpu/ops/pairhmm_pallas.py:124"),
+    "pairhmm_backward_long": ("pairhmm_cuda", "BACKWARD_LONG", "dafs_tpu_torch/csrc/pairhmm.cu",
+                              "dafs_tpu/ops/pairhmm_pallas.py:236"),
+    "nussinov_long": ("nussinov_cuda", "DECODE_LONG", "dafs_tpu_torch/csrc/nussinov.cu",
+                      "dafs_tpu/ops/nussinov_pallas.py:76"),
+    "nw_long": ("nw_cuda", "DECODE_LONG", "dafs_tpu_torch/csrc/nw.cu",
+                "dafs_tpu/ops/nw_pallas.py:37"),
+}
+
+
+def long_kernels():
+    from dafs_tpu_torch.ops import nussinov_cuda, nw_cuda, pairhmm_cuda
+
+    mods = {"pairhmm_cuda": pairhmm_cuda, "nussinov_cuda": nussinov_cuda, "nw_cuda": nw_cuda}
+    return {name: getattr(mods[m], attr) for name, (m, attr, _, _) in LONG_KERNELS.items()}
+
+
+def valid_structure(ss, l):
+    """Whether ss (left ends only, -1 elsewhere) is a nested structure
+    within the true length l."""
+    ss = ss.tolist()
+    stack, right = [], {}
+    for i, j in enumerate(ss):
+        if j >= 0 and (i >= l or not i < j < l or j in right):
+            return False
+        if j >= 0:
+            right[j] = i
+    for i in range(l):
+        if ss[i] >= 0:
+            stack.append(ss[i])
+        elif i in right:
+            if not stack or stack.pop() != i:
+                return False
+    return not stack and all(v < 0 for v in ss[l:])
+
+
+def valid_alignment(al, l1, l2):
+    """Whether al matches increasing columns within l2, gaps (-1) elsewhere."""
+    m = al[:l1][al[:l1] >= 0]
+    return (bool((m < l2).all()) and bool((np.diff(m) > 0).all())
+            and bool((al[l1:] < 0).all()))
+
+
+def length_phase(dev):
+    """Each long variant just past its kernel's old limit and at 2048,
+    bit-equal to its plain version; then once at the ceiling, well formed.
+    Returns {variant name: row of the JSON table}, the launches of this
+    phase in `launches_length_phase`."""
+    import torch
+
+    from dafs_tpu_torch.ops import nussinov, nussinov_cuda, nw, nw_cuda, pairhmm, pairhmm_cuda
+
+    rng = np.random.default_rng(6)
+    tab = pairhmm.tables(dev)
+    rows = {}
+    for k in long_kernels().values():
+        k.launches = 0
+
+    def record(name, err, ms, plain_ms, bnd):
+        _, _, source, replaces = LONG_KERNELS[name]
+        bound_ms, bound_by, bound_kind = bnd
+        rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
+                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, bound_kind=bound_kind,
+                          library_ms=None)
+        print(f"  bound {bound_ms:.6f} ms ({bound_by}); kernel at {bound_ms / ms:.2e} of it",
+              flush=True)
+
+    for imax in (1056, 2048):
+        L = imax - 1
+        args = random_pairs(rng, [L, L - 37], [L - 11, L], L, L, dev)
+        want_f, want_b, want_p = pairhmm_plain(args, tab)
+        for name, kfn, want, pfn in (
+            ("pairhmm_forward_long", lambda: pairhmm_cuda.forward(*args, tab), want_f,
+             lambda: pairhmm.forward_plain(*args, tab)),
+            ("pairhmm_backward_long", lambda: pairhmm_cuda.backward(*args, tab), want_b,
+             lambda: pairhmm.backward_plain(*args, tab)),
+        ):
+            exact, err = same(kfn(), want)
+            ms = cuda_ms(kfn, 3)
+            plain_ms = once_ms(pfn) if imax == 1056 else None
+            print(f"length {name} B=2 imax={imax}: bit-equal={exact} max_abs_err={err!r} "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms}", flush=True)
+            if not exact:
+                raise AssertionError(f"{name} imax={imax}: differs from the plain version")
+            if imax == 1056:
+                base = name.replace("_long", "")
+                record(name, err, ms, plain_ms, pairhmm_bound(args, base))
+        exact, err = same((pairhmm.forward_backward_posterior(*args, tab),), (want_p,))
+        ms = cuda_ms(lambda: pairhmm.forward_backward_posterior(*args, tab), 3)
+        print(f"length pairhmm codes to posteriors B=2 imax={imax}: bit-equal={exact} "
+              f"max_abs_err={err!r} {ms:.4f} ms", flush=True)
+        if not exact:
+            raise AssertionError(f"pairhmm posteriors imax={imax}: differ from the plain versions")
+
+    for L in (1056, 2048):
+        for B in (1, 2):
+            sm, lens = nussinov_inputs(rng, B, L, dev)
+            exact, err = same(nussinov_cuda.decode(sm, lens), nussinov.decode_plain(sm, lens))
+            ms = cuda_ms(lambda: nussinov_cuda.decode(sm, lens), 1)
+            plain_ms = once_ms(lambda: nussinov.decode_plain(sm, lens)) if L == 1056 else None
+            print(f"length nussinov_long B={B} L={L} lens={lens.tolist()}: bit-equal={exact} "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms} C={nussinov_cuda.cluster_size(B, L)}",
+                  flush=True)
+            if not exact:
+                raise AssertionError(f"nussinov L={L} B={B}: differs from the plain version")
+            if L == 1056 and B == 2:
+                record("nussinov_long", err, ms, plain_ms, nussinov_bound(lens, L))
+
+    for L1, L2 in ((1056, 1056), (800, 992), (2048, 2048)):
+        args = nw_inputs(rng, 2, L1, L2, dev)
+        if not nw_cuda.is_long(L1, L2):
+            raise AssertionError(f"nw {L1}x{L2} does not go to the long variant")
+        exact, err = same(nw_cuda.decode(*args), nw.decode_plain(*args))
+        ms = cuda_ms(lambda: nw_cuda.decode(*args), 3)
+        plain_ms = once_ms(lambda: nw.decode_plain(*args)) if L1 == 1056 else None
+        print(f"length nw_long B=2 {L1}x{L2}: bit-equal={exact} kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms}", flush=True)
+        if not exact:
+            raise AssertionError(f"nw {L1}x{L2}: differs from the plain version")
+        if L1 == 1056:
+            record("nw_long", err, ms, plain_ms, nw_bound(args))
+    args = nw_inputs(rng, 2, 800, 992, dev, ties=True)
+    exact, _ = same(nw_cuda.decode(*args), nw.decode_plain(*args))
+    print(f"length nw_long ties B=2 800x992: bit-equal={exact}", flush=True)
+    if not exact:
+        raise AssertionError("nw 800x992 ties: differs from the plain version")
+
+    # the ceiling, once each: times and well-formed outputs
+    C = 4096
+    args = random_pairs(rng, [C - 1, C - 300], [C - 1, C - 77], C - 1, C - 1, dev)
+    ms = once_ms(lambda: pairhmm.forward_backward_posterior(*args, tab))
+    post = pairhmm.forward_backward_posterior(*args, tab)
+    ok = bool(torch.isfinite(post).all()) and float(post.min()) >= -1e-5 and float(post.max()) <= 1.0
+    print(f"ceiling pairhmm codes to posteriors B=2 imax={C}: {ms:.4f} ms; finite in "
+          f"[-1e-5, 1]: {ok}", flush=True)
+    if not ok:
+        raise AssertionError("pairhmm at the ceiling: posteriors not well formed")
+    sm, lens = nussinov_inputs(rng, 2, C, dev)
+    ms = once_ms(lambda: nussinov_cuda.decode(sm, lens))
+    score, ss = nussinov_cuda.decode(sm, lens)
+    ok = all(valid_structure(ss[b].cpu().numpy(), int(lens[b])) for b in range(2))
+    ok = ok and bool(torch.isfinite(score).all())
+    print(f"ceiling nussinov_long B=2 L={C}: {ms:.4f} ms; valid structures: {ok}; "
+          f"pairs {[int((ss[b] >= 0).sum()) for b in range(2)]}", flush=True)
+    if not ok:
+        raise AssertionError("nussinov at the ceiling: not a valid structure")
+    args = nw_inputs(rng, 2, C, C, dev)
+    ms = once_ms(lambda: nw_cuda.decode(*args))
+    score, al = nw_cuda.decode(*args)
+    ok = all(valid_alignment(al[b].cpu().numpy(), int(args[3][b]), int(args[4][b]))
+             for b in range(2)) and bool(torch.isfinite(score).all())
+    print(f"ceiling nw_long B=2 {C}x{C}: {ms:.4f} ms; valid alignments: {ok}; matches "
+          f"{[int((al[b] >= 0).sum()) for b in range(2)]}", flush=True)
+    if not ok:
+        raise AssertionError("nw at the ceiling: not a valid alignment")
+    for label, fn in (
+        ("pairhmm", lambda: pairhmm_cuda.forward(*random_pairs(rng, [5], [5], C, 64, dev), tab)),
+        ("nussinov", lambda: nussinov_cuda.decode(torch.zeros((1, C + 32, C + 32), device=dev),
+                                                  torch.ones(1, dtype=torch.int32, device=dev))),
+        ("nw", lambda: nw_cuda.decode(*nw_inputs(rng, 1, 64, C + 32, dev))),
+    ):
+        try:
+            fn()
+        except ValueError as e:
+            if str(C) not in str(e):
+                raise AssertionError(f"{label} above the ceiling: the error does not name it: {e}")
+            print(f"above the ceiling {label}: ValueError naming {C}")
+        else:
+            raise AssertionError(f"{label} above the ceiling ran")
+    for name, k in long_kernels().items():
+        rows[name]["launches_length_phase"] = k.launches
+    return rows
+
+
 # ------------------------------------------------------------------ slice --
 
 
@@ -567,12 +788,13 @@ def columns_agreeing(a, b):
 
 
 def slice_phase(dev):
-    """Returns the launch count of every kernel over both runs."""
+    """Returns the launch count of every kernel and variant over both runs;
+    raises unless each main path kernel was launched in each."""
     import torch
 
     from dafs_tpu_torch import align_and_fold
 
-    for k in kernels().values():
+    for k in all_kernels().values():
         k.launches = 0
     for fa_name, snap_name in (("RF00005_0.fa", "rf00005_default_tpu.txt"),
                                ("RF00017_4.fa", "rf00017_default_tpu.txt")):
@@ -612,10 +834,10 @@ def slice_phase(dev):
             sim = np.load(os.path.join(SNAP, "rf00017_replay.npz"))["sim"]
             print(f"RF00017 similarity: max |port - recorded| = "
                   f"{float(np.abs(res.similarity - sim).max())!r}")
-    counts = {name: k.launches for name, k in kernels().items()}
+    counts = {name: k.launches for name, k in all_kernels().items()}
     print(f"launch counts over the two runs: {counts}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in kernels():
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     return counts
 
@@ -662,23 +884,12 @@ def plain_models_on_card(dev):
 
 def paths_phase(dev):
     """Runs PATH_RUNS; returns {kernel name: {run label: launches}}."""
-    import torch
-
-    from dafs_tpu_torch import align_and_fold
-
     plain_models_on_card(dev)
-    by_path = {name: {} for name in kernels()}
+    by_path = {name: {} for name in all_kernels()}
     for path, kw, fa_name, ref_name in PATH_RUNS:
         label = f"path ({path}) {fa_name}"
         fa = read_fasta(fa_name)
-        for k in kernels().values():
-            k.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = align_and_fold(fa, device=dev, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {name: k.launches for name, k in kernels().items()}
+        res, wall, counts = timed_run(fa, dev, **kw)
         for name, n in counts.items():
             by_path[name][label] = n
         phases = ", ".join(f"{k} {v:.3f}s" for k, v in res.phase_seconds.items())
@@ -715,6 +926,217 @@ def paths_phase(dev):
     return by_path
 
 
+# ---------------------------------------------------------------- solvers --
+# The host merge solvers (`--ipknot`, `-m 0`, `-v 2`, `dd_host`): the serial
+# merge recursion, one merge at a time, with K3 and K4 in every host DD
+# iteration.
+
+SOLVER_RUNS = [
+    ("c", ["--ipknot"], "rf00005_ipknot_cpu.txt"),
+    ("d", ["-m", "0"], "rf00005_ilp_cpu.txt"),
+]
+
+
+def cli_options(flags):
+    """The `align_and_fold` keywords the port's CLI builds from `flags`."""
+    from dafs_tpu_torch import cli
+
+    o = cli.options_from_args(cli.build_parser().parse_args([*flags, "x.fa"]))
+    return dict(th_s=o.th_s, th_s1=o.th_s1, use_bp_update1=o.use_bp_update1,
+                fold_decoder=o.fold_decoder, t_max=o.t_max, verbose=o.verbose)
+
+
+def check_levels(name, ss):
+    """Each bracket level of a (pseudoknotted) structure is balanced."""
+    from dafs_tpu_torch.decoders_ip.ipknot import LEFT, RIGHT
+
+    for lo, hi in zip(LEFT, RIGHT):
+        depth = 0
+        for ch in ss:
+            depth += (ch == lo) - (ch == hi)
+            if depth < 0:
+                break
+        if depth != 0:
+            raise AssertionError(f"{name}: bracket level {lo}{hi} of SS_cons is not balanced: {ss}")
+    if set(ss) - set(LEFT) - set(RIGHT) - {"."}:
+        raise AssertionError(f"{name}: SS_cons holds other characters: {ss}")
+
+
+def timed_run(fa, dev, **kw):
+    """(result, wall, launch counts) of one `align_and_fold` run, the counts
+    set to 0 just before it."""
+    import torch
+
+    from dafs_tpu_torch import align_and_fold
+
+    for k in all_kernels().values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = align_and_fold(fa, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, {name: k.launches for name, k in all_kernels().items()}
+
+
+def all_kernels():
+    return {**kernels(), **long_kernels()}
+
+
+def against_reference(label, res, ref_name):
+    """Holds the tree topology to a recorded output; prints the agreeing
+    SS_cons and row columns."""
+    ref, ref_ss, ref_names, ref_rows = read_snapshot(ref_name)
+    if NUM.sub("#", res.tree) != NUM.sub("#", ref):
+        raise AssertionError(f"{label} tree topology differs:\n{res.tree}\n{ref}")
+    if res.names != ref_names:
+        raise AssertionError(f"{label}: names differ from the reference's")
+    ss_ok, ss_all = columns_agreeing(res.ss_cons, ref_ss)
+    row_ok = [columns_agreeing(r, w) for r, w in zip(res.rows, ref_rows)]
+    print(f"{label} tree topology equals {ref_name}'s; SS_cons {ss_ok} of {ss_all} columns "
+          f"agree; rows {sum(a for a, _ in row_ok)} of {sum(b for _, b in row_ok)} columns "
+          f"agree, {sum(r == w for r, w in zip(res.rows, ref_rows))} of {len(ref_rows)} rows "
+          f"identical; SS_cons {res.ss_cons}", flush=True)
+
+
+def replay_rf00017(dev):
+    """The RF00017 frozen replay (tests/test_rf00017_replay.py) through the
+    port's host-loop DD with the Nussinov decoder on the card: the recorded
+    posteriors, similarity and consensus matrices, the names of
+    tests/data/RF00017_4.fa.  Returns (wall, iterations, launch counts,
+    phase seconds); raises unless the tree line, SS_cons and every row equal
+    the frozen output."""
+    import hashlib
+
+    import torch
+
+    from dafs_tpu_torch import guide_tree, pipeline
+    from dafs_tpu_torch.typedefs import gapped_seq
+
+    data = np.load(os.path.join(SNAP, "rf00017_replay.npz"))
+    fa = read_fasta("RF00017_4.fa")
+    if [f.name for f in fa] != list(data["names"]) or [f.seq for f in fa] != list(data["seqs"]):
+        raise AssertionError("tests/data/RF00017_4.fa differs from the replay's family")
+    calls = iter(range(int(data["n_ali_calls"])))
+
+    def aln_key(aln, constraint=None):
+        h = hashlib.sha256()
+        for row in aln:
+            h.update(str(row.seq_id).encode())
+            h.update(np.asarray(row.mask, np.uint8).tobytes())
+        if constraint:
+            h.update(constraint.encode())
+        return h.hexdigest()[:16]
+
+    class ReplayAlifold:
+        def consensus_bp(self, aln, fa_, device, constraint=None):
+            i = next(calls)
+            if str(data[f"ali_key_{i}"]) != aln_key(aln, constraint):
+                raise AssertionError(f"replay: consensus call {i} diverged from the recorded trace")
+            return data[f"ali_out_{i}"]
+
+    d = pipeline.Dafs(None, None, pipeline.Options(dd_host=True),
+                      alifold_model=ReplayAlifold(), device=dev)
+    d.fa, d.mp, d.bp = fa, data["mp"], data["bp"]
+    d.tree = guide_tree.build_tree(data["sim"])
+    for k in all_kernels().values():
+        k.launches = 0
+    phases = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, aln = d._align(len(d.tree) - 1, phases)
+    p = d._avg_bp(aln, use_alifold=True)
+    _, sstr = d._decode_structure(p, d.o.th_s1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in all_kernels().items()}
+    iters = sum(n for n, _ in d.host_dd)
+    lines = str(data["output"]).splitlines()
+    rows = {"> " + fa[r.seq_id].name: gapped_seq(fa[r.seq_id].seq, r.mask) for r in aln}
+    tree = guide_tree.print_tree(d.tree, [f.name for f in fa])
+    same_rows = sum(rows[n] == r for n, r in zip(lines[3::2], lines[4::2]))
+    print(f"replay RF00017: {wall:.3f}s wall; {iters} DD iterations over {len(d.host_dd)} "
+          f"merges; launches {counts}; tree "
+          f"{'equal' if tree == lines[0] else 'DIFFERS'}; SS_cons "
+          f"{'equal' if sstr == lines[2] else 'DIFFERS'}; rows equal {same_rows} of "
+          f"{len(lines[3::2])}", flush=True)
+    if tree != lines[0] or sstr != lines[2] or same_rows != len(lines[3::2]):
+        raise AssertionError("replay RF00017: the output differs from the frozen output")
+    if counts["nw"] != iters or counts["nussinov"] != iters + 1:
+        raise AssertionError(f"replay RF00017: {iters} iterations but launches {counts}")
+    return wall, iters, counts, phases
+
+
+def solvers_phase(dev):
+    """Paths (c) `--ipknot` and (d) `-m 0` on RF00005 against dafs_tpu's CPU
+    output, (e) `-v 2` against `dd_host=True`, and (f) the RF00017 frozen
+    replay.  Returns {kernel name: {run label: launches}}."""
+    import contextlib
+    import io
+
+    import scipy
+
+    from dafs_tpu_torch.decoders_ip import ipknot
+
+    try:
+        binding = ipknot._highs_core().__name__
+    except ImportError:
+        binding = "none (per-iteration milp)"
+    print(f"scipy {scipy.__version__}; HiGHS binding for the IPknot models: {binding}",
+          flush=True)
+    by_path = {name: {} for name in all_kernels()}
+    fa = read_fasta("RF00005_0.fa")
+
+    def report(label, res, wall, counts):
+        """Returns the host DD iterations of the run."""
+        for name, n in counts.items():
+            by_path[name][label] = n
+        iters = sum(n for n, _ in res.host_dd)
+        phases = ", ".join(f"{k} {v:.3f}s" for k, v in res.phase_seconds.items())
+        print(f"{label}: {wall:.3f}s wall; {iters} host DD iterations over {len(res.host_dd)} "
+              f"merges (iterations, violations at exit: {res.host_dd}); {phases}", flush=True)
+        consensus_summary(label, res.consensus_calls)
+        print(f"{label} launch counts: {counts}", flush=True)
+        check_rows(res, fa)
+        check_levels(label, res.ss_cons)
+        return iters
+
+    for path, flags, ref_name in SOLVER_RUNS:
+        label = f"path ({path}) {' '.join(flags)} RF00005_0.fa"
+        res, wall, counts = timed_run(fa, dev, **cli_options(flags))
+        iters = report(label, res, wall, counts)
+        against_reference(label, res, ref_name)
+        if path == "c" and (counts["nw"] != iters or counts["nussinov"] != 0 or iters == 0):
+            raise AssertionError(f"{label}: K4 launches {counts['nw']} for {iters} iterations")
+        if path == "d" and (counts["nw"] != 0 or res.host_dd):
+            raise AssertionError(f"{label}: the exact ILP launched K4 or ran a DD loop")
+        _, ref_ss, _, ref_rows = read_snapshot(ref_name)
+        if path == "d" and (res.ss_cons != ref_ss or res.rows != ref_rows):
+            raise AssertionError(f"{label}: SS_cons or rows differ from {ref_name}")
+
+    label = "path (e) -v 2 RF00005_0.fa"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res, wall, counts = timed_run(fa, dev, **cli_options(["-v", "2"]))
+    iters = report(label, res, wall, counts)
+    dumps = buf.getvalue()
+    host, host_wall, host_counts = timed_run(fa, dev, dd_host=True)
+    print(f"path (e) dd_host=True RF00005_0.fa: {host_wall:.3f}s wall; launch counts "
+          f"{host_counts}", flush=True)
+    blocks = dumps.count("\n\n")
+    print(f"{label}: {len(dumps)} bytes of dumps, {blocks} blocks for {iters} iterations; "
+          f"output {'equals' if str(res) == str(host) else 'DIFFERS from'} the dd_host run's",
+          flush=True)
+    if str(res) != str(host) or blocks != iters or counts["nw"] != iters:
+        raise AssertionError(f"{label}: dumps or output differ from the dd_host run")
+
+    wall, iters, counts, phases = replay_rf00017(dev)
+    for name, n in counts.items():
+        by_path[name]["replay RF00017"] = n
+    print(f"replay RF00017 phases: {', '.join(f'{k} {v:.3f}s' for k, v in phases.items())}")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -728,12 +1150,25 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_lib.library()
     print(f"built and loaded {cuda_lib.build()} in {time.perf_counter() - t0:.1f}s")
-    rows = kernel_phase(dev)
-    counts = slice_phase(dev)
-    by_path = paths_phase(dev)
-    for name, n in counts.items():
-        rows[name]["launches"] = n
-        rows[name]["launches_by_path"] = by_path[name]
+    rows, seconds = {}, {}
+
+    def run(phase, fn):
+        t = time.perf_counter()
+        out = fn(dev)
+        seconds[phase] = round(time.perf_counter() - t, 1)
+        print(f"phase {phase}: {seconds[phase]}s", flush=True)
+        return out
+
+    rows.update(run("kernels", kernel_phase))
+    rows.update(run("length", length_phase))
+    counts = run("slice", slice_phase)
+    by_path = run("paths", paths_phase)
+    for name, runs in run("solvers", solvers_phase).items():
+        by_path[name].update(runs)
+    for name, row in rows.items():
+        row["launches"] = counts[name]
+        row["launches_by_path"] = by_path[name]
+    print(f"phase seconds: {seconds}")
     print(smi)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,14 @@
 
 The port of `dafs_tpu.align_and_fold` for the slice that is ported so far:
 the ProbCons or CONTRAlign alignment model, the BL* or Vienna McCaskill or
-the CONTRAfold fold model, bp-update, and the RNAalifold consensus mixed
-into every merge and into the final structure.  `use_alifold=False` drops
-the mix from the merges only, as in the JAX package.  Keyword arguments
-override `pipeline.Options` fields; any option outside the slice raises
-`NotImplementedError` naming the ROADMAP item that brings it.
+the CONTRAfold fold model, bp-update, the RNAalifold consensus mixed
+into every merge and into the final structure, and the host merge solvers
+(`fold_decoder="IPknot"`, `t_max=0`, `verbose=2`, `dd_host=True`).
+`use_alifold=False` drops the mix from the merges only, as in the JAX
+package.  Keyword arguments override `pipeline.Options` fields; the options
+still outside the slice (`n_refinement`, `w_pct_f`, the aux files,
+`dd_update` other than "subgradient") raise `NotImplementedError` naming
+the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -33,11 +36,14 @@ class Result:
     names: list[str]     # sequence names, sorted by input order
     rows: list[str]      # gapped sequences, aligned columns
     score: float         # final joint objective value
-    # host wall seconds per pipeline phase, the (N, N) similarity matrix, and
-    # one record per RNAalifold consensus call (`ops.alifold.Alifold.calls`)
+    # host wall seconds per pipeline phase, the (N, N) similarity matrix,
+    # one record per RNAalifold consensus call (`ops.alifold.Alifold.calls`),
+    # and (iterations, violations at exit) of each merge that the host DD
+    # loop solved (`--ipknot`, `-v 2`, `dd_host`), in solve order
     phase_seconds: dict = dataclasses.field(default_factory=dict)
     similarity: np.ndarray | None = None
     consensus_calls: list = dataclasses.field(default_factory=list)
+    host_dd: list = dataclasses.field(default_factory=list)
 
     def __str__(self) -> str:
         lines = [self.tree, ">SS_cons", self.ss_cons]
@@ -80,7 +86,8 @@ def align_and_fold(
       use_alifold: mix the RNAalifold consensus into every merge (the final
         structure always mixes it in).
       **options: overrides for pipeline.Options fields (w, t_max, eta0, th_a,
-        th_s, th_s1, w_pct_a, w_pct_s, use_bp_update, use_bp_update1, ...).
+        th_s, th_s1, w_pct_a, w_pct_s, use_bp_update, use_bp_update1,
+        fold_decoder, verbose, dd_host, ...).
     """
     from dafs_tpu_torch import pipeline
     from dafs_tpu_torch.models import align_models, fold_models

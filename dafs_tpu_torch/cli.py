@@ -3,14 +3,18 @@
 
 Usage: python -m dafs_tpu_torch.cli [-a ProbCons|CONTRAlign]
        [-s Boltzmann|Vienna|CONTRAfold] [--bp-update] [--bp-update1]
-       [--no-alifold] [--device cuda] FILE
+       [--ipknot | --fold-decoder IPknot] [-m T] [-v N] [--no-alifold]
+       [--profile DIR] [--device cuda] FILE
 
 The option surface is the JAX CLI's, plus `--device`.  Without options it
 runs DAFS's default path.  `--no-alifold` drops the RNAalifold consensus
 mix from the progressive merges; the final structure mixes it in all the
 same, as in the JAX CLI and the reference (use_alifold1_ is always true).
-Every option outside the ported slice raises NotImplementedError naming
-the ROADMAP item that brings it.
+`--ipknot`, `-m 0` and `-v 2` run the host merge solvers (IPknot's ILPs in
+the DD loop, the exact joint ILP, the host DD loop with per-iteration
+dumps).  The options still outside the ported slice (`-r`, `-f`,
+`--dd-update adagrad|adam`, the aux files, `-P`) raise NotImplementedError
+naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -100,6 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "FILENAME")
     p.add_argument("--save-align-aux", metavar="FILENAME",
                    help="dump match posteriors")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="capture a torch.profiler trace of the run into DIR "
+                        "(a Chrome trace, trace.json; CPU activity, and the "
+                        "card's when the device is one)")
     p.add_argument("--save-fold-aux", metavar="FILENAME",
                    help="dump base-pair posteriors")
     p.add_argument("-P", "--param-file", metavar="FILE", default=None,
@@ -188,8 +196,29 @@ def main(argv=None) -> int:
         alifold_model=alifold.Alifold(0.0, bl=args.fold_model == "Boltzmann"),
         device=args.device,
     )
-    sys.stdout.write(d.run(load_fasta(args.input)))
+    fa = load_fasta(args.input)
+    if args.profile:
+        out = _profiled(d, fa, args.profile)
+    else:
+        out = d.run(fa)
+    sys.stdout.write(out)
     return 0
+
+
+def _profiled(d, fa, out_dir):
+    """`d.run(fa)` under torch.profiler; writes `out_dir/trace.json`."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if d.device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        out = d.run(fa)
+        if d.device.type == "cuda":
+            torch.cuda.synchronize(d.device)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    return out
 
 
 if __name__ == "__main__":

@@ -44,13 +44,21 @@
 //    ld.global.cg since other SMs wrote them.  At the main path's widths
 //    the on-chip tables are the faster layout (decoder_variants.py times
 //    both).
-// 5. Traceback codes are int16 (3 + o <= 1026), packed as the upper
-//    triangle (code_index).  Where they fit beside the tables (L <= 389 at
+// 5. Traceback codes are int16 (3 + o <= 1026 at L = 1024), packed as the
+//    upper triangle (code_index).  Where they fit beside the tables (L <= 389 at
 //    C = 8), every CTA writes its codes straight into the shared memory of
 //    the cluster's rank 0 (DSMEM), and rank 0 walks them locally; otherwise
 //    the codes go to global memory.  The walk is one thread: about 2l
 //    dependent reads, the current segment in registers and the stack in
 //    shared memory only for the second half of a bifurcation.
+//
+// Long variant (dafs_nussinov_decode_long, padded L above 1024 up to the
+// ceiling of 4096 in ops/nussinov_cuda.py): the same kernel with its tables
+// and its codes in global memory and the codes int32, so that no code
+// width or shared-memory size bounds the split offset.  The walk's stack,
+// 8 (L + 2) bytes (32 KB at 4096), still fits shared memory.  The tables
+// (2 L*L floats, 128 MB a problem at 4096) no longer stay in L2, so each
+// split reads from memory: slower, and the same values bit for bit.
 //
 // The floor this leaves: l-1 cluster barriers, each carrying a release at
 // cluster scope so that the next diagonal sees the tables' writes
@@ -117,11 +125,12 @@ __device__ __forceinline__ float load_table(const float* p) {
 
 // kSmemTables: dp and pair tables in the cluster's shared memory (read
 // locally or through DSMEM); otherwise in global memory, L2-resident.
-// codes_in_smem: the traceback codes in rank 0's shared memory.
-template <bool kSmemTables>
+// codes_in_smem: the traceback codes in rank 0's shared memory.  Code: the
+// type of a traceback code, short up to L = 1024, int above.
+template <bool kSmemTables, typename Code = short>
 __global__ void __launch_bounds__(kThreads)
 nussinov_kernel(const float* __restrict__ sm, const int* __restrict__ lens,
-                float* dp_all, float* mt_all, short* code_all,
+                float* dp_all, float* mt_all, Code* code_all,
                 float* __restrict__ score, int* __restrict__ ss_all, int L,
                 int codes_in_smem) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -135,8 +144,8 @@ nussinov_kernel(const float* __restrict__ sm, const int* __restrict__ lens,
   float* DP = dp_all + off;  // global tables: DP[i * L + c] = dp(i, c)
   float* MT = mt_all + off;  //                MT[j * L + k] = m(k, j)
   int* stack = reinterpret_cast<int*>(smem);
-  short* codes_local = reinterpret_cast<short*>(smem + stack_bytes(L));
-  short* codes = codes_in_smem
+  Code* codes_local = reinterpret_cast<Code*>(smem + stack_bytes(L));
+  Code* codes = codes_in_smem
       ? cluster.map_shared_rank(codes_local, 0)
       : code_all + static_cast<size_t>(b) * L * (L - 1) / 2;
   float* dp_local = reinterpret_cast<float*>(
@@ -225,7 +234,7 @@ nussinov_kernel(const float* __restrict__ sm, const int* __restrict__ lens,
         const bool has_any = v > kNeg;
         dp_row(i)[j] = has_any ? v : 0.0f;
         m_col(j)[i] = m;
-        codes[code_index(i, j, L)] = static_cast<short>(has_any ? code : 0);
+        codes[code_index(i, j, L)] = static_cast<Code>(has_any ? code : 0);
       }
     }
     // one CTA needs only a block barrier, far cheaper than the cluster's
@@ -242,7 +251,7 @@ nussinov_kernel(const float* __restrict__ sm, const int* __restrict__ lens,
   __syncthreads();
   if (threadIdx.x != 0) return;
   score[b] = l >= 1 ? load_table<kSmemTables>(dp_row(0) + l - 1) : 0.0f;  // dp(0, l-1)
-  const short* walk = codes_in_smem ? codes_local : codes;
+  const Code* walk = codes_in_smem ? codes_local : codes;
   // segments are disjoint, so the order they are walked in does not matter
   int sp = 0, i = 0, j = l - 1;
   while (true) {
@@ -330,6 +339,29 @@ extern "C" int dafs_nussinov_decode(const float* sm, const int* lens,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  void* args[] = {&sm, &lens, &dp, &mt, &code, &score, &ss, &L, &in_smem};
+  const cudaError_t e = launch_cluster(kernel, B * C, C, smem, stream, args);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The long variant: padded L above 1024.  Tables and int32 codes in global
+// memory (dp, mt: B*L*L floats; code: B*L*(L-1)/2 ints), the stack in
+// shared memory.
+extern "C" int dafs_nussinov_decode_long(const float* sm, const int* lens,
+                                         float* dp, float* mt, int* code,
+                                         float* score, int* ss, int B, int L,
+                                         int C, cudaStream_t stream) {
+  if (!valid_cluster(C)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = stack_bytes(L);
+  if (smem > DAFS_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = reinterpret_cast<const void*>(nussinov_kernel<false, int>);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  int in_smem = 0;
   void* args[] = {&sm, &lens, &dp, &mt, &code, &score, &ss, &L, &in_smem};
   const cudaError_t e = launch_cluster(kernel, B * C, C, smem, stream, args);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -38,6 +38,18 @@
 //   (ops/nw_cuda.smem_bytes; L1 <= 771 at 1023 columns, 1703 at 320, far
 //   beyond the main path's merged alignments of under 600 columns).
 //
+// Long variant (nw_long_kernel, for shapes past the limits above, up to
+// the ceiling of 4096 x 4096 in ops/nw_cuda.py).  One block of 1024
+// threads per problem walks the rows one after another; thread t owns a
+// chunk of ceil((L2+1)/1024) consecutive columns.  Per row: each thread
+// forms 'M' against 'X' for its columns and the running maximum of its
+// chunk; a block scan (shuffles, then the warps' totals) gives each chunk
+// the maximum left of it; each thread then finishes its columns in order.
+// The previous and current dp rows are in shared memory (two rows of
+// L2+1 floats), the codes one byte a cell in global memory, and thread 0
+// walks them there.  Two block barriers a row: slower than the wavefront
+// and simple; it exists so that no length up to the ceiling is refused.
+//
 // Tried on the card and dropped, each slower: one row at a time with a
 // 5-step shuffle scan per row (one warp then waits on every step of the
 // scan); 8-byte copies with column 0 kept out of the lanes; a ring of whole
@@ -273,7 +285,146 @@ int launch(const float* sm, const int* env_first, const int* env_last,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------- long variant --
+
+constexpr int kLongThreads = 1024;
+constexpr int kLongChunk = 8;  // columns a thread: (4096 + 1) / 1024 rounded up, with room
+
+// Shared memory of the long variant: two dp rows and the warps' totals.
+__host__ __device__ inline size_t long_smem_bytes(int L2) {
+  return sizeof(float) * (2 * static_cast<size_t>(L2 + 1) + 32);
+}
+
+__global__ void __launch_bounds__(kLongThreads)
+nw_long_kernel(const float* __restrict__ sm, const int* __restrict__ env_first,
+               const int* __restrict__ env_last, const int* __restrict__ l1s,
+               const int* __restrict__ l2s, float* __restrict__ score,
+               int* __restrict__ al_all, unsigned char* __restrict__ code_all,
+               int L1, int L2) {
+  extern __shared__ float rows[];
+  const int W = L2 + 1;
+  float* prev = rows;
+  float* cur = rows + W;
+  float* wmax = rows + 2 * W;  // 32 warps' running maxima
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int l1 = min(l1s[b], L1), l2 = min(l2s[b], L2);
+  const float* S = sm + static_cast<size_t>(b) * L1 * L2;
+  const int* ef = env_first + static_cast<size_t>(b) * (L1 + 1);
+  const int* el = env_last + static_cast<size_t>(b) * (L1 + 1);
+  int* al = al_all + static_cast<size_t>(b) * L1;
+  unsigned char* codes = code_all + static_cast<size_t>(b) * (L1 + 1) * W;
+  const int per = (W + kLongThreads - 1) / kLongThreads;  // <= kLongChunk
+  const int k0 = tid * per;
+
+  // row 0: dp = 0, code 'Y' for k > 0
+  for (int k = tid; k < W; k += kLongThreads) {
+    prev[k] = 0.0f;
+    codes[k] = k > 0 ? 3 : 0;
+  }
+  for (int i = tid; i < L1; i += kLongThreads) al[i] = -1;
+  if (tid == 0 && l1 == 0) score[b] = 0.0f;
+  __syncthreads();
+
+  for (int i = 1; i <= l1; ++i) {
+    const int first = max(ef[i], 1), last = el[i];
+    const bool start1 = ef[i] <= 1;  // dp[i][0] = 0 starts the 'Y' chain
+    const float* srow = S + static_cast<size_t>(i - 1) * L2;
+    float bv[kLongChunk];
+    int bc[kLongChunk];
+    float run = kLowest;  // running max of this chunk's chain values
+#pragma unroll
+    for (int q = 0; q < kLongChunk; ++q) {
+      const int k = k0 + q;
+      bv[q] = kLowest;
+      bc[q] = 0;
+      if (q < per && k < W) {
+        float c;
+        if (k == 0) {
+          c = start1 ? 0.0f : kLowest;
+        } else {
+          // 'M' wins against 'X' on ties
+          const float m = prev[k - 1] + srow[k - 1];
+          const float x = prev[k];
+          const bool ge = m >= x;
+          bv[q] = ge ? m : x;
+          bc[q] = ge ? 1 : 2;
+          c = (k >= first && k <= last) ? bv[q] : kLowest;
+        }
+        run = fmaxf(run, c);
+      }
+    }
+    // exclusive block scan of the chunks' maxima
+    float incl = run;
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl = fmaxf(incl, v);
+    }
+    if (lane == 31) wmax[warp] = incl;
+    __syncthreads();
+    float left = __shfl_up_sync(kFull, incl, 1);
+    if (lane == 0) left = kLowest;
+    for (int v = 0; v < warp; ++v) left = fmaxf(left, wmax[v]);
+    // 'Y' (left) only when strictly greater
+#pragma unroll
+    for (int q = 0; q < kLongChunk; ++q) {
+      const int k = k0 + q;
+      if (q < per && k < W) {
+        float d;
+        int cd;
+        if (k == 0) {
+          d = 0.0f;
+          cd = 2;
+          left = start1 ? 0.0f : kLowest;
+        } else {
+          const bool in_band = k >= first && k <= last;
+          d = in_band ? fmaxf(bv[q], left) : kLowest;
+          cd = in_band ? (left > bv[q] ? 3 : bc[q]) : 0;
+          left = fmaxf(left, in_band ? bv[q] : kLowest);
+        }
+        cur[k] = d;
+        codes[static_cast<size_t>(i) * W + k] = static_cast<unsigned char>(cd);
+        if (i == l1 && k == l2) score[b] = d;
+      }
+    }
+    __syncthreads();
+    float* t = prev;
+    prev = cur;
+    cur = t;
+  }
+
+  if (tid != 0) return;
+  // in row 0 only 'Y' and in column 0 only 'X' remain, which leave al at -1
+  int i = l1, k = l2;
+  while (k > 0 && i > 0) {
+    const int c = codes[static_cast<size_t>(i) * W + k];
+    if (c == 1) al[i - 1] = k - 1;  // 'X' leaves al[i-1] at -1
+    i -= (c == 1 || c == 2);
+    k -= (c != 2);
+  }
+}
+
 }  // namespace
+
+// The long variant: any L1 and L2 + 1 <= 1024 * 8 columns; code: B *
+// (L1 + 1) * (L2 + 1) bytes of global memory.
+extern "C" int dafs_nw_decode_long(const float* sm, const int* env_first,
+                                   const int* env_last, const int* l1,
+                                   const int* l2, float* score, int* al,
+                                   unsigned char* code, int B, int L1, int L2,
+                                   cudaStream_t stream) {
+  if (L2 + 1 > kLongThreads * kLongChunk) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = long_smem_bytes(L2);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        nw_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  nw_long_kernel<<<B, kLongThreads, smem, stream>>>(sm, env_first, env_last, l1,
+                                                    l2, score, al, code, L1, L2);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int dafs_nw_decode(const float* sm, const int* env_first,
                               const int* env_last, const int* l1,

@@ -65,6 +65,18 @@
 //
 // decoder_variants.py times this design against copies with one part left
 // out or changed.
+//
+// Long variant (dafs_pairhmm_{forward,backward}_long, for imax above 1024
+// up to the ceiling of 4096 in ops/pairhmm_cuda.py).  A block of 1024
+// threads walks the rows in strips of 1024, one strip after another (the
+// first strip first forward, the last first backward), each strip as the
+// design above: a row a lane, shuffles and slots between warps, a barrier
+// per diagonal.  Between strips the edge row goes through global memory:
+// the strip's last row forward (first row backward) leaves its values of
+// every column in a buffer of W float4, and the next strip's first lane
+// (last lane) reads them there.  Slower than one strip, since the strips'
+// diagonals do not overlap, and the same operations cell for cell.  The
+// posterior kernel has no row limit and serves both.
 
 #include "common.cuh"
 
@@ -139,6 +151,110 @@ __device__ __forceinline__ void fill_dead(float* out, int n1, int n2, int imax, 
   }
 }
 
+// The transition and init scores, which a pass keeps in registers.
+struct Trans {
+  float t00, t01, t02, t10, t11, t20, t22, init0, init1, init2;
+};
+
+__device__ __forceinline__ Trans load_trans(const Tables* T) {
+  return Trans{T->trans[0], T->trans[1], T->trans[2], T->trans[3], T->trans[4],
+               T->trans[6], T->trans[8], T->init[0],  T->init[1],  T->init[2]};
+}
+
+// One forward cell (i, j), j = d - i: this row's (M1, X1, Y1) of diagonal
+// d - 1 become those of d.  (uM, uX): the row above on d - 1; (nM2, nX2,
+// nY2): the row above on d - 2; m_d, e2, ins1: the cell's emissions.  In
+// `first_rows` (the warp of rows 0 to 31 in the first strip) rows 0 and 1
+// hold the init cells (ProbabilisticModel.h:122-131) and the three captures
+// f_M(1,1), f_X(1,0), f_Y(0,1).  Returns whether (i, j) lies within the
+// lengths.  Both forward passes run this, so their arithmetic is one.
+__device__ __forceinline__ bool forward_cell(
+    const Trans& t, bool first_rows, int i, int j, int n1, int n2, float m_d, float e2,
+    float ins1, float uM, float uX, float nM2, float nX2, float nY2, float& M1, float& X1,
+    float& Y1, float& c11, float& cx10, float& cy01) {
+  const bool valid = i <= n1 && static_cast<unsigned>(j) <= static_cast<unsigned>(n2);
+  float acc = nM2 + t.t00;
+  acc = dafs_log_add(acc, nX2 + t.t10);
+  acc = dafs_log_add(acc, nY2 + t.t20);
+  float m_new = acc + m_d;
+  float x_new = ins1 + dafs_log_add(uM + t.t01, uX + t.t11);
+  float y_new = e2 + dafs_log_add(M1 + t.t02, Y1 + t.t22);
+  if (first_rows) {
+    const bool not_init = i > 1 || j > 1;
+    m_new = (valid && not_init && i > 0 && j > 0) ? m_new : LZ;
+    x_new = (valid && not_init && i > 0) ? x_new : LZ;
+    y_new = (valid && not_init && j > 0) ? y_new : LZ;
+    if (i == 1 && j == 1) m_new = t.init0 + m_d;
+    if (i == 1 && j == 0 && 1 <= n1) x_new = t.init1 + ins1;
+    if (i == 0 && j == 1 && 1 <= n2) y_new = t.init2 + e2;
+    if (!(valid && i > 0 && j > 0)) m_new = LZ;
+    if (i == 1 && j == 1) c11 = m_new;
+    if (i == 1 && j == 0) cx10 = x_new;
+    if (i == 0 && j == 1) cy01 = y_new;
+  } else {
+    // rows from 32 on: M and Y live for 1 <= j <= len2, X for 0 <= j
+    const bool inner = i <= n1 && static_cast<unsigned>(j - 1) < static_cast<unsigned>(n2);
+    m_new = inner ? m_new : LZ;
+    x_new = valid ? x_new : LZ;
+    y_new = inner ? y_new : LZ;
+  }
+  M1 = m_new;
+  X1 = x_new;
+  Y1 = y_new;
+  return valid;
+}
+
+// One backward cell (i, j), j = d - i: this row's (M1, X1, Y1) of diagonal
+// d + 1 become those of d.  dX: the row below on d + 1; nM2: the row below
+// on d + 2; match_n, ins1n, ins2_n: the emissions of (i + 1, j + 1).
+// Returns whether (i, j) lies within the lengths.  Both backward passes run
+// this.
+__device__ __forceinline__ bool backward_cell(
+    const Trans& t, int i, int j, int n1, int n2, float match_n, float ins1n, float ins2_n,
+    float dX, float nM2, float& M1, float& X1, float& Y1) {
+  const bool valid = i <= n1 && static_cast<unsigned>(j) <= static_cast<unsigned>(n2);
+  const bool has_y = i <= n1 && static_cast<unsigned>(j) < static_cast<unsigned>(n2);
+  const bool has_x = i < n1 && valid;
+  const bool has_m = i < n1 && has_y;
+  const float prob_xy = nM2 + match_n;
+
+  // order matches ProbabilisticModel.h:233-249.  LOG_ADD of LOG_ZERO
+  // and v is the larger of the two, exactly: v >= LOG_ZERO makes
+  // LOG_ZERO the smaller operand, which returns v; below LOG_ZERO the
+  // two differ by more than LOG_UNDERFLOW (float32 spacing at 2e20),
+  // which returns LOG_ZERO.
+  float bM = LZ, bX = LZ, bY = LZ;
+  if (has_m) {
+    bM = fmaxf(LZ, prob_xy + t.t00);
+    bX = fmaxf(LZ, prob_xy + t.t10);
+    bY = fmaxf(LZ, prob_xy + t.t20);
+  }
+  const float via_x = dX + ins1n;
+  const float mx = dafs_log_add(bM, via_x + t.t01);
+  const float xx = dafs_log_add(bX, via_x + t.t11);
+  if (has_x) {
+    bM = mx;
+    bX = xx;
+  }
+  const float via_y = Y1 + ins2_n;
+  const float my = dafs_log_add(bM, via_y + t.t02);
+  const float yy = dafs_log_add(bY, via_y + t.t22);
+  if (has_y) {
+    bM = my;
+    bY = yy;
+  }
+  if (i == n1 && j == n2) {
+    bM = t.init0;
+    bX = t.init1;
+    bY = t.init2;
+  }
+  // outside the lengths nothing was added: bM, bX and bY are LOG_ZERO
+  M1 = bM;
+  X1 = bX;
+  Y1 = bY;
+  return valid;
+}
+
 // ------------------------------------------------------------- forward --
 
 __device__ __forceinline__ void forward_pass(
@@ -157,10 +273,7 @@ __device__ __forceinline__ void forward_pass(
   const int nlive = min(nw, n1 / 32 + 1);  // warps that stay
   const Tables* T = s.T;
   const int* c2 = s.c2;
-  const float t00 = T->trans[0], t01 = T->trans[1], t02 = T->trans[2];
-  const float t10 = T->trans[3], t11 = T->trans[4];
-  const float t20 = T->trans[6], t22 = T->trans[8];
-  const float init0 = T->init[0], init1 = T->init[1], init2 = T->init[2];
+  const Trans t = load_trans(T);
   const int i = rb + lane;            // this lane's row
   const bool next_live = rl < n1;     // the next warp has rows within len1
   const int de = min(rl, n1) + n2;    // last diagonal crossing these rows
@@ -196,38 +309,9 @@ __device__ __forceinline__ void forward_pass(
     }
 
     const int j = d - i;
-    const bool valid = i <= n1 && static_cast<unsigned>(j) <= static_cast<unsigned>(n2);
-    float acc = nM2 + t00;
-    acc = dafs_log_add(acc, nX2 + t10);
-    acc = dafs_log_add(acc, nY2 + t20);
-    float m_new = acc + m_d;
-    float x_new = ins1 + dafs_log_add(uM + t01, uX + t11);
-    float y_new = e2 + dafs_log_add(M1 + t02, Y1 + t22);
-    if (w == 0) {
-      // rows 0 and 1 hold the init cells (ProbabilisticModel.h:122-131) and
-      // three captures
-      const bool not_init = i > 1 || j > 1;
-      m_new = (valid && not_init && i > 0 && j > 0) ? m_new : LZ;
-      x_new = (valid && not_init && i > 0) ? x_new : LZ;
-      y_new = (valid && not_init && j > 0) ? y_new : LZ;
-      if (i == 1 && j == 1) m_new = init0 + m_d;
-      if (i == 1 && j == 0 && 1 <= n1) x_new = init1 + ins1;
-      if (i == 0 && j == 1 && 1 <= n2) y_new = init2 + e2;
-      if (!(valid && i > 0 && j > 0)) m_new = LZ;
-      if (i == 1 && j == 1) c11 = m_new;
-      if (i == 1 && j == 0) cx10 = x_new;
-      if (i == 0 && j == 1) cy01 = y_new;
-    } else {
-      // rows from 32 on: M and Y live for 1 <= j <= len2, X for 0 <= j
-      const bool inner = i <= n1 && static_cast<unsigned>(j - 1) < static_cast<unsigned>(n2);
-      m_new = inner ? m_new : LZ;
-      x_new = valid ? x_new : LZ;
-      y_new = inner ? y_new : LZ;
-    }
-    if (valid) out[i * W + j] = m_new;
-    M1 = m_new;
-    X1 = x_new;
-    Y1 = y_new;
+    if (forward_cell(t, w == 0, i, j, n1, n2, m_d, e2, ins1, uM, uX, nM2, nX2, nY2, M1, X1,
+                     Y1, c11, cx10, cy01))
+      out[i * W + j] = M1;
     nM2 = uM;
     nX2 = uX;
     nY2 = uY;
@@ -272,10 +356,7 @@ __device__ __forceinline__ void backward_pass(
   const int nlive = min(nw, n1 / 32 + 1);  // warps that stay
   const Tables* T = s.T;
   const int* c2 = s.c2;
-  const float t00 = T->trans[0], t01 = T->trans[1], t02 = T->trans[2];
-  const float t10 = T->trans[3], t11 = T->trans[4];
-  const float t20 = T->trans[6], t22 = T->trans[8];
-  const float init0 = T->init[0], init1 = T->init[1], init2 = T->init[2];
+  const Trans t = load_trans(T);
   const int i = rb + lane;          // this lane's row
   const bool next_live = rl < n1;   // the warp after this one has live rows
   const int de = min(rl, n1) + n2;
@@ -312,53 +393,13 @@ __device__ __forceinline__ void backward_pass(
     }
 
     const int j = d - i;
-    const bool valid = i <= n1 && static_cast<unsigned>(j) <= static_cast<unsigned>(n2);
-    const bool has_y = i <= n1 && static_cast<unsigned>(j) < static_cast<unsigned>(n2);
-    const bool has_x = i < n1 && valid;
-    const bool has_m = i < n1 && has_y;
-    const float prob_xy = nM2 + match_n;
-
-    // order matches ProbabilisticModel.h:233-249.  LOG_ADD of LOG_ZERO
-    // and v is the larger of the two, exactly: v >= LOG_ZERO makes
-    // LOG_ZERO the smaller operand, which returns v; below LOG_ZERO the
-    // two differ by more than LOG_UNDERFLOW (float32 spacing at 2e20),
-    // which returns LOG_ZERO.
-    float bM = LZ, bX = LZ, bY = LZ;
-    if (has_m) {
-      bM = fmaxf(LZ, prob_xy + t00);
-      bX = fmaxf(LZ, prob_xy + t10);
-      bY = fmaxf(LZ, prob_xy + t20);
-    }
-    const float via_x = dX + ins1n;
-    const float mx = dafs_log_add(bM, via_x + t01);
-    const float xx = dafs_log_add(bX, via_x + t11);
-    if (has_x) {
-      bM = mx;
-      bX = xx;
-    }
-    const float via_y = Y1 + ins2_n;
-    const float my = dafs_log_add(bM, via_y + t02);
-    const float yy = dafs_log_add(bY, via_y + t22);
-    if (has_y) {
-      bM = my;
-      bY = yy;
-    }
-    if (i == n1 && j == n2) {
-      bM = init0;
-      bX = init1;
-      bY = init2;
-    }
-    // outside the lengths nothing was added: bM, bX and bY are LOG_ZERO
-
-    if (valid) out[i * W + j] = bM;
+    if (backward_cell(t, i, j, n1, n2, match_n, ins1n, ins2_n, dX, nM2, M1, X1, Y1))
+      out[i * W + j] = M1;
     if (w == 0) {
-      if (i == 1 && j == 1) c11 = bM;
-      if (i == 1 && j == 0) cx10 = bX;
-      if (i == 0 && j == 1) cy01 = bY;
+      if (i == 1 && j == 1) c11 = M1;
+      if (i == 1 && j == 0) cx10 = X1;
+      if (i == 0 && j == 1) cy01 = Y1;
     }
-    M1 = bM;
-    X1 = bX;
-    Y1 = bY;
     nM2 = dM;
     cjn = c_next;
 
@@ -374,6 +415,232 @@ __device__ __forceinline__ void backward_pass(
     }
     if (lane == 0) cap[2] = cy01;
   }
+}
+
+// ------------------------------------------------- long variant passes --
+
+// forward_pass for imax above 1024, in strips of blockDim.x rows.  E: two
+// rows of W float4; strip s leaves (M, X, Y) of its last row in E[s & 1].
+__device__ __forceinline__ void forward_pass_long(
+    const int* __restrict__ codes1, const int* __restrict__ codes2,
+    const TablePtrs& tab, float* __restrict__ out, float* __restrict__ cap,
+    float4* E, int n1, int n2, int imax, int l2max, float4* smem) {
+  const int W = l2max + 1;
+  const int nw = blockDim.x >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int R = blockDim.x;
+  const Shared s = carve(smem, nw);
+  stage(s, tab, codes2, W);
+  fill_dead(out, n1, n2, imax, W);
+  __syncthreads();
+
+  const Tables* T = s.T;
+  const int* c2 = s.c2;
+  const Trans t = load_trans(T);
+  float c11 = LZ, cx10 = LZ, cy01 = LZ;   // captures f_M(1,1), f_X(1,0), f_Y(0,1)
+
+  for (int row0 = 0; row0 <= n1; row0 += R) {
+    const int strip = row0 / R;
+    const float4* Ein = E + ((strip + 1) & 1) * W;  // the strip before's last row
+    float4* Eout = E + (strip & 1) * W;
+    const int rb = row0 + 32 * w, rl = rb + 31;
+    const int nlive = min(nw, (n1 - row0) / 32 + 1);
+    const int dlast = min(row0 + R - 1, n1) + n2;
+    if (rb <= n1) {
+      const int i = rb + lane;
+      const bool next_live = rl < n1;
+      const bool last_warp = w == nw - 1;
+      const int de = min(rl, n1) + n2;
+      const int c1 = i < imax ? codes1[i] : 0;
+      const int c17 = 7 * c1;
+      const float ins1 = T->ins[c1];
+      int cj = code_at(c2, rb - i, l2max);
+      float M1 = LZ, X1 = LZ, Y1 = LZ;
+      float nM2 = LZ, nX2 = LZ, nY2 = LZ;
+      for (int d = row0; d <= dlast; ++d) {
+        if (d < rb || d > de) {
+          diagonal_barrier(nlive);
+          continue;
+        }
+        const float m_d = T->match[c17 + cj];
+        const float e2 = T->ins[cj];
+        const int c_next = code_at(c2, d + 1 - i, l2max);
+
+        // the row above: the lane before, the warp before through its
+        // slot, or the strip before through E
+        float4 edge = make_float4(LZ, LZ, LZ, 0.0f);
+        if (lane == 0 && d <= rb + n2) {
+          if (w > 0) {
+            edge = s.edge[2 * (w - 1) + ((d - 1) & 1)];
+          } else if (row0 > 0) {
+            edge = Ein[d - rb];
+          }
+        }
+        float uM = __shfl_up_sync(kFull, M1, 1);
+        float uX = __shfl_up_sync(kFull, X1, 1);
+        float uY = __shfl_up_sync(kFull, Y1, 1);
+        if (lane == 0) {
+          uM = edge.x;
+          uX = edge.y;
+          uY = edge.z;
+        }
+
+        const int j = d - i;
+        if (forward_cell(t, row0 == 0 && w == 0, i, j, n1, n2, m_d, e2, ins1, uM, uX, nM2,
+                         nX2, nY2, M1, X1, Y1, c11, cx10, cy01))
+          out[static_cast<size_t>(i) * W + j] = M1;
+        nM2 = uM;
+        nX2 = uX;
+        nY2 = uY;
+        cj = c_next;
+
+        if (lane == 31 && next_live && d >= rl) {  // row rl has a cell on d
+          const float4 v = make_float4(M1, X1, Y1, 0.0f);
+          if (last_warp) {
+            Eout[d - rl] = v;
+          } else {
+            s.edge[2 * w + (d & 1)] = v;
+          }
+        }
+        diagonal_barrier(nlive);
+      }
+      if (i == n1) {
+        cap[0] = M1;
+        cap[1] = X1;
+        cap[2] = Y1;
+      }
+    }
+    __syncthreads();  // E and the slots are complete before the next strip
+  }
+  if (w == 0) {
+    if (lane == 1) {
+      cap[3] = c11;
+      cap[4] = cx10;
+    }
+    if (lane == 0) cap[5] = cy01;
+  }
+}
+
+// backward_pass for imax above 1024, in strips of blockDim.x rows from the
+// last one up.  Strip s leaves (M, X) of its first row in E[s & 1].
+__device__ __forceinline__ void backward_pass_long(
+    const int* __restrict__ codes1, const int* __restrict__ codes2,
+    const TablePtrs& tab, float* __restrict__ out, float* __restrict__ cap,
+    float4* E, int n1, int n2, int imax, int l2max, float4* smem) {
+  const int W = l2max + 1;
+  const int nw = blockDim.x >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int R = blockDim.x;
+  const Shared s = carve(smem, nw);
+  stage(s, tab, codes2, W);
+  fill_dead(out, n1, n2, imax, W);
+  __syncthreads();
+
+  const Tables* T = s.T;
+  const int* c2 = s.c2;
+  const Trans t = load_trans(T);
+  float c11 = LZ, cx10 = LZ, cy01 = LZ;   // captures b_M(1,1), b_X(1,0), b_Y(0,1)
+
+  for (int row0 = n1 / R * R; row0 >= 0; row0 -= R) {
+    const int strip = row0 / R;
+    const float4* Ein = E + ((strip + 1) & 1) * W;  // the strip after's first row
+    float4* Eout = E + (strip & 1) * W;
+    const int rb = row0 + 32 * w, rl = rb + 31;
+    const int nlive = min(nw, (n1 - row0) / 32 + 1);
+    const int dtop = min(row0 + R - 1, n1) + n2;
+    if (rb <= n1) {
+      const int i = rb + lane;
+      const bool next_live = rl < n1;
+      const bool last_warp = w == nw - 1;
+      const int de = min(rl, n1) + n2;
+      const bool has_next = i + 1 < imax;
+      const int c1n = has_next ? codes1[i + 1] : 0;
+      const int c17n = 7 * c1n;
+      const float ins1n = has_next ? T->ins[c1n] : 0.0f;
+      int cjn = code_at(c2, de - i + 1, l2max);
+      float M1 = LZ, X1 = LZ, Y1 = LZ;
+      float nM2 = LZ;
+      for (int d = dtop; d >= row0; --d) {
+        if (d < rb || d > de) {
+          diagonal_barrier(nlive);
+          continue;
+        }
+        const float match_n = has_next ? T->match[c17n + cjn] : 0.0f;
+        const float ins2_n = T->ins[cjn];
+        const int c_next = code_at(c2, d - i, l2max);
+
+        // the row below: the lane after, the warp after through its slot,
+        // or the strip after through E
+        float4 edge = make_float4(LZ, LZ, 0.0f, 0.0f);
+        if (lane == 31 && next_live && d >= rl) {
+          edge = last_warp ? Ein[d - rl] : s.edge[2 * (w + 1) + ((d + 1) & 1)];
+        }
+        float dM = __shfl_down_sync(kFull, M1, 1);
+        float dX = __shfl_down_sync(kFull, X1, 1);
+        if (lane == 31) {
+          dM = edge.x;
+          dX = edge.y;
+        }
+
+        const int j = d - i;
+        if (backward_cell(t, i, j, n1, n2, match_n, ins1n, ins2_n, dX, nM2, M1, X1, Y1))
+          out[static_cast<size_t>(i) * W + j] = M1;
+        if (row0 == 0 && w == 0) {
+          if (i == 1 && j == 1) c11 = M1;
+          if (i == 1 && j == 0) cx10 = X1;
+          if (i == 0 && j == 1) cy01 = Y1;
+        }
+        nM2 = dM;
+        cjn = c_next;
+
+        if (lane == 0 && d <= rb + n2) {  // row rb has a cell on d
+          const float4 v = make_float4(M1, X1, 0.0f, 0.0f);
+          if (w > 0) {
+            s.edge[2 * w + (d & 1)] = v;
+          } else if (row0 > 0) {
+            Eout[d - rb] = v;
+          }
+        }
+        diagonal_barrier(nlive);
+      }
+    }
+    __syncthreads();  // E and the slots are complete before the next strip
+  }
+  if (w == 0) {
+    if (lane == 1) {
+      cap[0] = c11;
+      cap[1] = cx10;
+    }
+    if (lane == 0) cap[2] = cy01;
+  }
+}
+
+__global__ void __launch_bounds__(1024)
+pairhmm_forward_long_kernel(const int* __restrict__ codes1, const int* __restrict__ len1,
+                            const int* __restrict__ codes2, const int* __restrict__ len2,
+                            TablePtrs tab, float* __restrict__ fm,
+                            float* __restrict__ fcap, float4* __restrict__ edge,
+                            int imax, int l2max) {
+  extern __shared__ float4 smem[];
+  const int b = blockIdx.x;
+  forward_pass_long(codes1 + static_cast<size_t>(b) * imax,
+                    codes2 + static_cast<size_t>(b) * (l2max + 1), tab,
+                    fm + static_cast<size_t>(b) * imax * (l2max + 1), fcap + b * 6,
+                    edge + static_cast<size_t>(b) * 2 * (l2max + 1),
+                    min(len1[b], imax - 1), min(len2[b], l2max), imax, l2max, smem);
+}
+
+__global__ void __launch_bounds__(1024)
+pairhmm_backward_long_kernel(const int* __restrict__ codes1, const int* __restrict__ len1,
+                             const int* __restrict__ codes2, const int* __restrict__ len2,
+                             TablePtrs tab, float* __restrict__ bm,
+                             float* __restrict__ bcap, float4* __restrict__ edge,
+                             int imax, int l2max) {
+  extern __shared__ float4 smem[];
+  const int b = blockIdx.x;
+  backward_pass_long(codes1 + static_cast<size_t>(b) * imax,
+                     codes2 + static_cast<size_t>(b) * (l2max + 1), tab,
+                     bm + static_cast<size_t>(b) * imax * (l2max + 1), bcap + b * 3,
+                     edge + static_cast<size_t>(b) * 2 * (l2max + 1),
+                     min(len1[b], imax - 1), min(len2[b], l2max), imax, l2max, smem);
 }
 
 __global__ void __launch_bounds__(1024)
@@ -500,7 +767,49 @@ int launch_pass(bool forward, const int* codes1, const int* len1, const int* cod
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_pass_long(bool forward, const int* codes1, const int* len1,
+                     const int* codes2, const int* len2, const TablePtrs& tab,
+                     float* out, float* cap, float4* edge, int B, int imax,
+                     int l2max, cudaStream_t stream) {
+  const size_t smem = shared_bytes(32, l2max + 1);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (forward) {
+    pairhmm_forward_long_kernel<<<B, 1024, smem, stream>>>(
+        codes1, len1, codes2, len2, tab, out, cap, edge, imax, l2max);
+  } else {
+    pairhmm_backward_long_kernel<<<B, 1024, smem, stream>>>(
+        codes1, len1, codes2, len2, tab, out, cap, edge, imax, l2max);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The long variants, for imax above 1024: edge holds B * 2 * (l2max + 1)
+// float4 of scratch for the hand-over between strips.
+extern "C" int dafs_pairhmm_forward_long(const int* codes1, const int* len1,
+                                         const int* codes2, const int* len2,
+                                         const float* match, const float* ins,
+                                         const float* trans, const float* init,
+                                         float* fm, float* fcap, float* edge,
+                                         int B, int imax, int l2max,
+                                         cudaStream_t stream) {
+  const TablePtrs tab = {match, ins, trans, init};
+  return launch_pass_long(true, codes1, len1, codes2, len2, tab, fm, fcap,
+                          reinterpret_cast<float4*>(edge), B, imax, l2max, stream);
+}
+
+extern "C" int dafs_pairhmm_backward_long(const int* codes1, const int* len1,
+                                          const int* codes2, const int* len2,
+                                          const float* match, const float* ins,
+                                          const float* trans, const float* init,
+                                          float* bm, float* bcap, float* edge,
+                                          int B, int imax, int l2max,
+                                          cudaStream_t stream) {
+  const TablePtrs tab = {match, ins, trans, init};
+  return launch_pass_long(false, codes1, len1, codes2, len2, tab, bm, bcap,
+                          reinterpret_cast<float4*>(edge), B, imax, l2max, stream);
+}
 
 extern "C" int dafs_pairhmm_forward(const int* codes1, const int* len1,
                                     const int* codes2, const int* len2,

@@ -16,6 +16,13 @@ Python loop; a CUDA graph or a persistent kernel is later work.
 
 Host-side preparation per merge (candidate enumeration, the alignment
 envelope, padding to 32-multiples) is numpy, copied from the JAX package.
+
+Two host solvers of one merge at a time, reached through the serial merge
+recursion of `pipeline.Dafs._align`: `solve_by_dd_ipknot`, the host-loop
+DD (`--ipknot`, `-v 2` and `dd_host`), whose multiplier arithmetic is numpy
+float32 in the JAX package's order and whose decodes are the port's own
+(K3 and K4 on the card), and `solve_by_ip`, the exact joint ILP of `-m 0`
+(scipy's HiGHS `milp`), copied as it is.
 """
 
 from __future__ import annotations
@@ -316,3 +323,348 @@ def solve_by_dd(p_x, p_y, p_z, n1, n2, *, w, th_s, th_a, eta0, t_max, device,
         [(p_x, p_y, p_z, n1, n2)], w=w, th_s=th_s, th_a=th_a, eta0=eta0,
         t_max=t_max, device=device, update_rule=update_rule,
     )[0]
+
+
+def _host_decoders(p_z, env, pad_xy, th_a, device):
+    """Decoders of one merge for the host loop, on `device`: returns
+    (decode_xy, decode_z).  `decode_xy(sm_x, sm_y)` runs both Nussinov
+    decodes in one batch of two, padded to the larger of the two padded
+    lengths; `decode_z(sm_z)` the banded NW decode.  Both take the
+    unpadded score matrices and return (score, ss or al) of the true
+    lengths, scores as Python floats of the float32 results.  Padding as in
+    `_prep_dd_problem`: multiples of 32 (at least 32), the cells past the
+    true lengths scored as the padded zero posteriors and multipliers
+    score them (`pad_xy` for the two structure problems); no decoder reads
+    them."""
+    f = np.float32
+    dev = torch.device(device)
+    L1, L2 = p_z.shape
+    P1, P2 = max(_round_up(L1, 32), 32), max(_round_up(L2, 32), 32)
+    P = max(P1, P2)
+    lens_xy = torch.tensor([L1, L2], dtype=torch.int32, device=dev)
+    envf = np.zeros((1, P1 + 1), np.int32)
+    envl = np.zeros((1, P1 + 1), np.int32)
+    envf[0, : L1 + 1] = env[:, 0]
+    envl[0, : L1 + 1] = env[:, 1]
+    envl[0, L1 + 1:] = L2
+    envf, envl = torch.from_numpy(envf).to(dev), torch.from_numpy(envl).to(dev)
+    l1 = torch.tensor([L1], dtype=torch.int32, device=dev)
+    l2 = torch.tensor([L2], dtype=torch.int32, device=dev)
+    sm_xy = np.empty((2, P, P), np.float32)
+    sm_xy[0], sm_xy[1] = pad_xy
+    sm_z = np.full((1, P1, P2), np.float32(f(0.0) - f(th_a)), np.float32)
+
+    def decode_xy(sm_x, sm_y):
+        sm_xy[0, :L1, :L1] = sm_x
+        sm_xy[1, :L2, :L2] = sm_y
+        s, ss = nussinov.decode(torch.from_numpy(sm_xy).to(dev), lens_xy)
+        s, ss = s.cpu().numpy(), ss.cpu().numpy()
+        return (float(s[0]), ss[0, :L1].astype(np.int64),
+                float(s[1]), ss[1, :L2].astype(np.int64))
+
+    def decode_z(sm):
+        sm_z[0, :L1, :L2] = sm
+        s, al = nw.decode(torch.from_numpy(sm_z).to(dev), envf, envl, l1, l2)
+        return float(s.cpu().numpy()[0]), al[0, :L1].cpu().numpy().astype(np.int64)
+
+    return decode_xy, decode_z
+
+
+def solve_by_dd_ipknot(p_x, p_y, p_z, n1, n2, *, w, th_s, th_a, eta0, t_max,
+                       device, structure_decoder="ipknot", verbose_cb=None,
+                       trace_cb=None):
+    """Host-loop DD merge solve with a pluggable structure decoder (port of
+    `dafs_tpu.dd.solve_by_dd_ipknot`, src/dafs.cpp:1006-1295).
+
+    structure_decoder="ipknot": the reference's --ipknot mode uses the
+    IPknot ILP *inside* the DD loop (s_decoder_, src/dafs.cpp:1754,
+    1091-1092); the ILPs run on the host, the NW decode on `device`.
+    structure_decoder="nussinov": both structure decodes go to
+    `ops/nussinov.decode` on `device` (K3 on the card) in one batch of two,
+    as used by the -v 2 verbose mode, where verbose_cb(x, y, z) is invoked
+    each iteration (output_verbose, src/dafs.cpp:875-894), and by `dd_host`.
+    The NW decode goes to `ops/nw.decode` (K4 on the card).  The multiplier
+    arithmetic is numpy float32, written in the JAX package's order, so the
+    iterates are its bits; trace_cb(t, s, violated, eta) sees each
+    iteration.
+    """
+    from dafs_tpu_torch.decoders_ip import ipknot
+
+    f = np.float32
+    L1, L2 = p_z.shape
+    min_th_s = min(th_s)
+    cbp = enumerate_cbp(p_x, p_y, p_z, n1, n2, w, min_th_s, th_a)
+    env = nw.envelope(p_z, th_a)
+    in_cx = np.zeros((L1, L1), bool)
+    in_cy = np.zeros((L2, L2), bool)
+    in_cz = np.zeros((L1, L2), bool)
+    if len(cbp):
+        in_cx[cbp[:, 0], cbp[:, 1]] = True
+        in_cy[cbp[:, 2], cbp[:, 3]] = True
+        in_cz[cbp[:, 0], cbp[:, 2]] = True
+        in_cz[cbp[:, 1], cbp[:, 3]] = True
+
+    q_x = np.zeros((L1, L1), np.float32)
+    q_y = np.zeros((L2, L2), np.float32)
+    q_z = np.zeros((L1, L2), np.float32)
+    w_x = f(f(w) * 2 * n1 / (n1 + n2))
+    w_y = f(f(w) * 2 * n2 / (n1 + n2))
+    # the padded cells' scores, as the batched loop's padded zeros give them
+    pads = [np.float32(wv * (f(0.0) - f(th_s[0])) - f(0.0)) for wv in (w_x, w_y)]
+    decode_xy, decode_z = _host_decoders(p_z, env, pads, th_a, device)
+    if structure_decoder == "ipknot":
+        # persistent HiGHS models: variable/constraint skeleton built once,
+        # per-iteration solves only update costs/bounds and warm-start from
+        # the previous incumbent.  If no direct HiGHS binding is importable
+        # (ipknot._highs_core), degrade to the slower but public-API
+        # per-iteration decode path.
+        try:
+            ipk_x = ipknot.IPknotModel(p_x, th_s, w_x, extra=in_cx)
+            ipk_y = ipknot.IPknotModel(p_y, th_s, w_y, extra=in_cy)
+        except ImportError:
+            logger.warning(
+                "no HiGHS binding for persistent IPknot models; "
+                "falling back to per-iteration ILP decodes"
+            )
+
+            class _DecodeShim:
+                def __init__(self, p, wv):
+                    self.p, self.wv = p, wv
+
+                def solve(self, q):
+                    return ipknot.decode(self.p, th_s, w=self.wv, q=q)
+
+            ipk_x = _DecodeShim(p_x, w_x)
+            ipk_y = _DecodeShim(p_y, w_y)
+    eta = f(eta0)
+    c = f(0.0)
+    s_prev = f(0.0)
+    x = np.full(L1, -1, np.int64)
+    y = np.full(L2, -1, np.int64)
+    z = np.full(L1, -1, np.int64)
+    violated = 0
+
+    for t in range(t_max):
+        if structure_decoder == "ipknot":
+            x, _str1, s1 = ipk_x.solve(q_x)
+            y, _str2, s2 = ipk_y.solve(q_y)
+        else:
+            sm_x = np.float32(w_x * (p_x - f(th_s[0])) - q_x)
+            sm_y = np.float32(w_y * (p_y - f(th_s[0])) - q_y)
+            s1, x, s2, y = decode_xy(sm_x, sm_y)
+        sm_z = np.float32(p_z - f(th_a) + q_z)
+        s3, z = decode_z(sm_z)
+        if verbose_cb is not None:
+            verbose_cb(x, y, z)
+        s = f(f(s1) + f(s2) + float(s3))
+
+        t_x = np.zeros((L1, L1), np.int64)
+        t_y = np.zeros((L2, L2), np.int64)
+        t_z = np.zeros((L1, L2), np.int64)
+        if len(cbp):
+            s_w = np.float32(
+                q_x[cbp[:, 0], cbp[:, 1]] + q_y[cbp[:, 2], cbp[:, 3]]
+                - q_z[cbp[:, 0], cbp[:, 2]] - q_z[cbp[:, 1], cbp[:, 3]]
+            )
+            act = s_w > 0.0
+            s = f(s + np.sum(s_w[act], dtype=np.float32))
+            np.add.at(t_x, (cbp[act, 0], cbp[act, 1]), 1)
+            np.add.at(t_y, (cbp[act, 2], cbp[act, 3]), 1)
+            np.add.at(t_z, (cbp[act, 0], cbp[act, 2]), 1)
+            np.add.at(t_z, (cbp[act, 1], cbp[act, 3]), 1)
+
+        X = np.zeros((L1, L1), np.int64)
+        X[np.arange(L1)[x >= 0], x[x >= 0]] = 1
+        Y = np.zeros((L2, L2), np.int64)
+        Y[np.arange(L2)[y >= 0], y[y >= 0]] = 1
+        Z = np.zeros((L1, L2), np.int64)
+        Z[np.arange(L1)[z >= 0], z[z >= 0]] = 1
+
+        dx = t_x - X
+        ux = ((X > 0) | in_cx) & (dx != 0)
+        q_x = np.where(ux, np.float32(q_x - eta * dx.astype(np.float32)), q_x)
+        dy = t_y - Y
+        uy = ((Y > 0) | in_cy) & (dy != 0)
+        q_y = np.where(uy, np.float32(q_y - eta * dy.astype(np.float32)), q_y)
+        dz = Z - t_z
+        mz = (Z > 0) | in_cz
+        q_z = np.where(
+            mz, np.maximum(np.float32(0.0), np.float32(q_z - eta * dz.astype(np.float32))), q_z
+        )
+        vz = ((Z > 0) & (t_z > 1)) | ((Z == 0) & in_cz & (t_z > 0))
+        violated = int(ux.sum() + uy.sum() + vz.sum())
+
+        if trace_cb is not None:
+            # the reference's per-iteration debug line (src/dafs.cpp:1273-1276):
+            # step t, Lagrangian bound s, violation count, eta
+            trace_cb(t, float(s), violated, float(eta))
+        if violated == 0:
+            break
+        if s > s_prev or t == 0:
+            denom = 4.0 * max(len(cbp), 1)
+            c = f(c + max(0.0, f(4.0 * len(cbp)) - violated) / denom)
+            eta = f(eta0 / (1.0 + c))
+        s_prev = s
+
+    logger.info("Step: %s, Violated: %d", "ipknot-dd", violated)
+    return float(s_prev), x, y, z
+
+
+def solve_by_ip(p_x, p_y, p_z, n1, n2, *, w, th_s, th_a, eta0=None, t_max=None,
+                fix_z=None, device=None):
+    """Exact joint ILP (DAFS::solve_by_ip, src/dafs.cpp:1297-1497), reached
+    with -m 0.  Variables x_ij, y_kl, z_ik, w_ijkl; constraints: at most one
+    partner per base, no pseudoknots, no crossing matches, consensus coupling.
+    Solved with scipy's HiGHS milp.
+
+    fix_z: optional set of (i, k) cells; when given, every z variable is
+    pinned (1 if in the set, 0 otherwise), to score a known matching.
+
+    A copy of `dafs_tpu.dd.solve_by_ip` (numpy and scipy only, host code
+    on every device); `device` is taken for the solvers' common signature
+    and not used."""
+    from scipy import sparse as sp
+    from scipy.optimize import LinearConstraint, milp
+
+    f = np.float32
+    L1, L2 = p_z.shape
+    min_th_s = f(min(th_s))
+
+    zi, zk = np.nonzero(p_z > CUTOFF)
+    v_z = {(i, k): t for t, (i, k) in enumerate(zip(zi, zk))}
+    obj = [float(f(p_z[i, k] - f(th_a))) for (i, k) in v_z]
+
+    cbp = enumerate_cbp(p_x, p_y, p_z, n1, n2, w, float(min_th_s), th_a, for_ip=True)
+    v_x: dict = {}
+    v_y: dict = {}
+    v_w = []
+    nv = len(v_z)
+    for (i, j, k, l) in cbp:
+        v_w.append((nv, (i, j, k, l)))
+        obj.append(0.0)
+        nv += 1
+        if (i, j) not in v_x:
+            v_x[(i, j)] = nv
+            obj.append(float(f(f(w) * (p_x[i, j] - min_th_s))))
+            nv += 1
+        if (k, l) not in v_y:
+            v_y[(k, l)] = nv
+            obj.append(float(f(f(w) * (p_y[k, l] - min_th_s))))
+            nv += 1
+
+    rows, lbs, ubs = [], [], []
+
+    def add(coeffs, lo, hi):
+        rows.append(coeffs)
+        lbs.append(lo)
+        ubs.append(hi)
+
+    # each base pairs at most once (x)
+    for i in range(L1):
+        cs = [(v, 1.0) for (a, b), v in v_x.items() if a == i or b == i]
+        if cs:
+            add(cs, -np.inf, 1.0)
+    # no pseudoknots in x
+    xk = sorted(v_x)
+    for ai in range(len(xk)):
+        i, j = xk[ai]
+        for bi in range(len(xk)):
+            k, l = xk[bi]
+            if i < k < j < l:
+                add([(v_x[(i, j)], 1.0), (v_x[(k, l)], 1.0)], -np.inf, 1.0)
+    # same for y
+    for k in range(L2):
+        cs = [(v, 1.0) for (a, b), v in v_y.items() if a == k or b == k]
+        if cs:
+            add(cs, -np.inf, 1.0)
+    yk2 = sorted(v_y)
+    for ai in range(len(yk2)):
+        i, j = yk2[ai]
+        for bi in range(len(yk2)):
+            k, l = yk2[bi]
+            if i < k < j < l:
+                add([(v_y[(i, j)], 1.0), (v_y[(k, l)], 1.0)], -np.inf, 1.0)
+    # each base aligns at most once
+    for i in range(L1):
+        cs = [(v, 1.0) for (a, b), v in v_z.items() if a == i]
+        if cs:
+            add(cs, -np.inf, 1.0)
+    for k in range(L2):
+        cs = [(v, 1.0) for (a, b), v in v_z.items() if b == k]
+        if cs:
+            add(cs, -np.inf, 1.0)
+    # no crossing matches
+    zk2 = sorted(v_z)
+    for (i, k) in zk2:
+        for (j, l) in zk2:
+            if j > i and l < k:
+                add([(v_z[(i, k)], 1.0), (v_z[(j, l)], 1.0)], -np.inf, 1.0)
+    # consensus coupling: x_ij = sum w over cbp with that (i,j); same for y;
+    # z_ik >= sum w touching it
+    from collections import defaultdict
+
+    by_x = defaultdict(list)
+    by_y = defaultdict(list)
+    by_z = defaultdict(list)
+    for (vw, (i, j, k, l)) in v_w:
+        by_x[(i, j)].append(vw)
+        by_y[(k, l)].append(vw)
+        by_z[(i, k)].append(vw)
+        by_z[(j, l)].append(vw)
+    for (ij, ws) in by_x.items():
+        add([(v_x[ij], 1.0)] + [(vw, -1.0) for vw in ws], 0.0, 0.0)
+    for (kl, ws) in by_y.items():
+        add([(v_y[kl], 1.0)] + [(vw, -1.0) for vw in ws], 0.0, 0.0)
+    for (ik, ws) in by_z.items():
+        if ik in v_z:
+            add([(v_z[ik], 1.0)] + [(vw, -1.0) for vw in ws], 0.0, np.inf)
+    # x/y pairs not touched by any cbp are fixed 0 by the reference's FX rows
+    for ij, v in v_x.items():
+        if ij not in by_x:
+            add([(v, 1.0)], 0.0, 0.0)
+    for kl, v in v_y.items():
+        if kl not in by_y:
+            add([(v, 1.0)], 0.0, 0.0)
+
+    if fix_z is not None:
+        for ik, v in v_z.items():
+            val = 1.0 if ik in fix_z else 0.0
+            add([(v, 1.0)], val, val)
+
+    if nv == 0:
+        return (
+            0.0,
+            np.full(L1, -1, np.int64),
+            np.full(L2, -1, np.int64),
+            np.full(L1, -1, np.int64),
+        )
+
+    data, ri, ci = [], [], []
+    for r, coeffs in enumerate(rows):
+        for v, c in coeffs:
+            ri.append(r)
+            ci.append(v)
+            data.append(c)
+    A = sp.csr_matrix((data, (ri, ci)), shape=(len(rows), nv))
+    res = milp(
+        c=-np.array(obj),
+        constraints=LinearConstraint(A, np.array(lbs), np.array(ubs)),
+        integrality=np.ones(nv),
+        bounds=(0, 1),
+    )
+    sol = res.x > 0.5 if res.x is not None else np.zeros(nv, bool)
+
+    x = np.full(L1, -1, np.int64)
+    for (i, j), v in v_x.items():
+        if sol[v]:
+            x[i] = j
+    y = np.full(L2, -1, np.int64)
+    for (k, l), v in v_y.items():
+        if sol[v]:
+            y[k] = l
+    z = np.full(L1, -1, np.int64)
+    for (i, k), v in v_z.items():
+        if sol[v]:
+            z[i] = k
+    s = float(np.dot(np.array(obj), sol.astype(np.float64)))
+    return s, x, y, z

@@ -6,10 +6,14 @@ PyTorch version is `ops/nussinov.decode_plain`, which `ops/nussinov.decode`
 takes for CPU tensors.  This wrapper accepts CUDA tensors only.
 
 Each problem runs on a thread-block cluster of `cluster_size(B, L)` CTAs.
-Padded lengths up to `MAX_L` are taken, as before: the dp and pair tables
-and the traceback codes stay in the cluster's shared memory where they fit
-(tables up to L = 669, codes beside them up to L = 389, at 8 CTAs) and go
-to global memory above that, so no new limit applies.
+Up to padded length `MAX_L` the kernel of the main path runs: the dp and
+pair tables and the int16 traceback codes stay in the cluster's shared
+memory where they fit (tables up to L = 669, codes beside them up to
+L = 389, at 8 CTAs) and go to global memory above that.  Above `MAX_L`, up
+to `CEILING`, its long variant `DECODE_LONG` runs instead: tables and int32
+codes in global memory (at 4096: 64 MB each table and 32 MB of codes a
+problem).  The choice depends on L only.  Above `CEILING` the wrapper
+raises `ValueError`.
 """
 
 from __future__ import annotations
@@ -26,9 +30,13 @@ _I = ctypes.c_int
 DECODE = cuda_lib.CudaKernel(
     "dafs_nussinov_decode", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I]
 )
+DECODE_LONG = cuda_lib.CudaKernel(
+    "dafs_nussinov_decode_long", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I]
+)
 FLOOR_PROBE = cuda_lib.CudaKernel("dafs_nussinov_floor_probe", [_P, _I, _I])
 
 MAX_L = 1024
+CEILING = 4096
 SMS = 132  # streaming multiprocessors of an H100 SXM
 WARPS_PER_CTA = 32  # csrc/nussinov.cu kThreads / 32
 
@@ -56,18 +64,23 @@ def decode(sm: torch.Tensor, lens: torch.Tensor):
     if dev.type != "cuda":
         raise ValueError(f"nussinov_cuda.decode: expected CUDA tensors, got {dev}")
     B, L, _ = sm.shape
-    if not 1 <= L <= MAX_L:
+    if L > CEILING:
+        raise ValueError(
+            f"nussinov_cuda.decode: padded length {L} is above the ceiling of {CEILING}")
+    if L < 1:
         raise ValueError(f"nussinov_cuda.decode: unsupported padded length {L}")
     cuda_lib.check(sm, "sm", torch.float32, (B, L, L), dev)
     cuda_lib.check(lens, "lens", torch.int32, (B,), dev)
+    long = L > MAX_L
     dp = torch.empty((B, L, L), dtype=torch.float32, device=dev)
     mt = torch.empty((B, L, L), dtype=torch.float32, device=dev)
-    code = torch.empty((B, L * (L - 1) // 2), dtype=torch.int16, device=dev)
+    code = torch.empty((B, L * (L - 1) // 2), dtype=torch.int32 if long else torch.int16,
+                       device=dev)
     score = torch.empty((B,), dtype=torch.float32, device=dev)
     ss = torch.empty((B, L), dtype=torch.int32, device=dev)
     p = cuda_lib.ptr
-    DECODE(p(sm), p(lens), p(dp), p(mt), p(code), p(score), p(ss), B, L,
-           cluster_size(B, L))
+    (DECODE_LONG if long else DECODE)(p(sm), p(lens), p(dp), p(mt), p(code), p(score),
+                                      p(ss), B, L, cluster_size(B, L))
     return score, ss
 
 

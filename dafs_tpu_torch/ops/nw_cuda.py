@@ -6,11 +6,14 @@ source and its design notes are in `csrc/nw.cu`.  The plain PyTorch version
 is `ops/nw.decode_plain`, which `ops/nw.decode` takes for CPU tensors.  This
 wrapper accepts CUDA tensors only.
 
-Limits: L2 + 1 <= `MAX_COLS` columns, as before, and the kernel's shared
-memory, a ring of score rows and the traceback codes at 2 bits a cell,
-must fit one block: `smem_bytes(L1, L2)` <= `MAX_SMEM_BYTES`.  That is
-L1 <= 1703 at L2 = 320, 771 at L2 = 1023; the main path's merged
-alignments stay under 600 columns.
+The kernel of the main path takes L2 + 1 <= `MAX_COLS` columns, and its
+shared memory, a ring of score rows and the traceback codes at 2 bits a
+cell, must fit one block: `smem_bytes(L1, L2)` <= `MAX_SMEM_BYTES` (L1 <=
+1703 at L2 = 320, 771 at L2 = 1023).  Every other shape up to `CEILING`
+rows and columns goes to its long variant `DECODE_LONG` (a block of 1024
+threads row by row, codes one byte a cell in global memory: 16 MB a
+problem at 4096 x 4096).  The choice depends on the shape only.  Above
+`CEILING` in either dimension the wrapper raises `ValueError`.
 """
 
 from __future__ import annotations
@@ -28,7 +31,12 @@ DECODE = cuda_lib.CudaKernel(
     "dafs_nw_decode", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I]
 )
 
+DECODE_LONG = cuda_lib.CudaKernel(
+    "dafs_nw_decode_long", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I]
+)
+
 MAX_COLS = 1024  # 32 lanes of at most 32 columns each
+CEILING = 4096
 MAX_SMEM_BYTES = 232448  # shared memory a block can use on Hopper (csrc/common.cuh)
 
 
@@ -49,14 +57,12 @@ def decode(sm, env_first, env_last, l1, l2):
     if dev.type != "cuda":
         raise ValueError(f"nw_cuda.decode: expected CUDA tensors, got {dev}")
     B, L1, L2 = sm.shape
-    if L1 < 1 or not 1 <= L2 + 1 <= MAX_COLS:
-        raise ValueError(f"nw_cuda.decode: unsupported padded shape {L1}x{L2}")
-    if smem_bytes(L1, L2) > MAX_SMEM_BYTES:
+    if L1 > CEILING or L2 > CEILING:
         raise ValueError(
-            f"nw_cuda.decode: padded shape {L1}x{L2} needs "
-            f"{smem_bytes(L1, L2)} bytes of shared memory, more than the "
-            f"{MAX_SMEM_BYTES} a block has"
-        )
+            f"nw_cuda.decode: padded shape {L1}x{L2} is above the ceiling of "
+            f"{CEILING}x{CEILING}")
+    if L1 < 1 or L2 < 1:
+        raise ValueError(f"nw_cuda.decode: unsupported padded shape {L1}x{L2}")
     cuda_lib.check(sm, "sm", torch.float32, (B, L1, L2), dev)
     cuda_lib.check(env_first, "env_first", torch.int32, (B, L1 + 1), dev)
     cuda_lib.check(env_last, "env_last", torch.int32, (B, L1 + 1), dev)
@@ -65,6 +71,17 @@ def decode(sm, env_first, env_last, l1, l2):
     score = torch.empty((B,), dtype=torch.float32, device=dev)
     al = torch.empty((B, L1), dtype=torch.int32, device=dev)
     p = cuda_lib.ptr
-    DECODE(p(sm), p(env_first), p(env_last), p(l1), p(l2), p(score), p(al),
-           B, L1, L2)
+    if is_long(L1, L2):
+        code = torch.empty((B, L1 + 1, L2 + 1), dtype=torch.uint8, device=dev)
+        DECODE_LONG(p(sm), p(env_first), p(env_last), p(l1), p(l2), p(score), p(al),
+                    p(code), B, L1, L2)
+    else:
+        DECODE(p(sm), p(env_first), p(env_last), p(l1), p(l2), p(score), p(al),
+               B, L1, L2)
     return score, al
+
+
+def is_long(L1: int, L2: int) -> bool:
+    """Whether a padded shape goes to the long variant: more than
+    `MAX_COLS` columns, or codes beyond one block's shared memory."""
+    return L2 + 1 > MAX_COLS or smem_bytes(L1, L2) > MAX_SMEM_BYTES

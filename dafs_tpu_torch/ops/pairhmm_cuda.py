@@ -14,9 +14,15 @@ stream and K1 to the current one, so the two passes of every pair run side
 by side; the posterior kernel follows on the current stream once both are
 done.
 
-Limit: `imax` = l1max + 1 <= `MAX_IMAX` rows (a block of at most 1024
-threads, a row a lane), and l2max + 1 <= `MAX_COLS` columns: codes2, the
-hand-over slots and the tables must fit 48 KB of shared memory.
+Limits: up to `imax` = l1max + 1 <= `MAX_IMAX` rows K1 and K2 run as
+designed for the main path (a block of at most 1024 threads, a row a lane).
+Above that, up to `CEILING` rows, their long variants run instead
+(`FORWARD_LONG`, `BACKWARD_LONG`: strips of 1024 rows, one after another,
+the edge row handed over through global memory); the choice depends on
+`imax` only.  Above `CEILING` rows the wrappers raise `ValueError`.
+l2max + 1 <= `MAX_COLS` columns: codes2, the hand-over slots and the
+tables must fit 48 KB of shared memory.  The posterior kernel has no row
+limit.
 """
 
 from __future__ import annotations
@@ -37,8 +43,12 @@ POSTERIOR = cuda_lib.CudaKernel(
     "dafs_pairhmm_posterior", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I]
 )
 FLOOR_PROBE = cuda_lib.CudaKernel("dafs_pairhmm_floor_probe", [_P, _I, _I, _I])
+_LONG_ARGS = [_P] * 11 + [_I] * 3
+FORWARD_LONG = cuda_lib.CudaKernel("dafs_pairhmm_forward_long", _LONG_ARGS)
+BACKWARD_LONG = cuda_lib.CudaKernel("dafs_pairhmm_backward_long", _LONG_ARGS)
 
 MAX_IMAX = 1024
+CEILING = 4096
 MAX_COLS = 8000
 
 _SIDE_STREAMS: dict = {}  # card index -> the stream K2 runs on
@@ -67,7 +77,11 @@ def _check(name, codes1, len1, codes2, len2, tab):
         raise ValueError(f"{name}: expected CUDA tensors, got {dev}")
     B, imax = codes1.shape
     W = codes2.shape[1]
-    if not 2 <= imax <= MAX_IMAX or not 2 <= W <= MAX_COLS:
+    if imax > CEILING:
+        raise ValueError(
+            f"{name}: padded length {imax - 1} has {imax} rows, above the "
+            f"ceiling of {CEILING}")
+    if imax < 2 or not 2 <= W <= MAX_COLS:
         raise ValueError(f"{name}: unsupported padded lengths {imax - 1}, {W - 1}")
     cuda_lib.check(codes1, "codes1", torch.int32, (B, imax), dev)
     cuda_lib.check(codes2, "codes2", torch.int32, (B, W), dev)
@@ -76,26 +90,39 @@ def _check(name, codes1, len1, codes2, len2, tab):
     return B, imax, W, table_ptrs(tab, dev)
 
 
-def _run(kernel, codes1, len1, codes2, len2, tab, ncap):
-    B, imax, W, tabs = _check(kernel.symbol, codes1, len1, codes2, len2, tab)
+def _launch(kernels, args, out, cap, B, imax, W):
+    """One pass: the main-path kernel of the pair (short, long) up to
+    `MAX_IMAX` rows, its long variant above, with its edge buffer."""
+    p = cuda_lib.ptr
+    if imax <= MAX_IMAX:
+        kernels[0](*args, p(out), p(cap), B, imax, W - 1)
+    else:
+        edge = torch.empty((B, 2, W, 4), dtype=torch.float32, device=out.device)
+        kernels[1](*args, p(out), p(cap), p(edge), B, imax, W - 1)
+
+
+def _run(kernels, codes1, len1, codes2, len2, tab, ncap):
+    B, imax, W, tabs = _check(kernels[0].symbol, codes1, len1, codes2, len2, tab)
     dev = codes1.device
     out = torch.empty((B, imax, W), dtype=torch.float32, device=dev)
     cap = torch.empty((B, ncap), dtype=torch.float32, device=dev)
     p = cuda_lib.ptr
     with torch.cuda.device(dev):
-        kernel(p(codes1), p(len1), p(codes2), p(len2), *tabs, p(out), p(cap),
-               B, imax, W - 1)
+        _launch(kernels, (p(codes1), p(len1), p(codes2), p(len2), *tabs), out, cap,
+                B, imax, W)
     return out, cap
 
 
 def forward(codes1, len1, codes2, len2, tab):
-    """Kernel K1: (fm (B, l1max+1, l2max+1), fcap (B, 6)); see ops/pairhmm."""
-    return _run(FORWARD, codes1, len1, codes2, len2, tab, 6)
+    """Kernel K1 (its long variant above `MAX_IMAX` rows): (fm (B,
+    l1max+1, l2max+1), fcap (B, 6)); see ops/pairhmm."""
+    return _run((FORWARD, FORWARD_LONG), codes1, len1, codes2, len2, tab, 6)
 
 
 def backward(codes1, len1, codes2, len2, tab):
-    """Kernel K2: (bm (B, l1max+1, l2max+1), bcap (B, 3)); see ops/pairhmm."""
-    return _run(BACKWARD, codes1, len1, codes2, len2, tab, 3)
+    """Kernel K2 (its long variant above `MAX_IMAX` rows): (bm (B,
+    l1max+1, l2max+1), bcap (B, 3)); see ops/pairhmm."""
+    return _run((BACKWARD, BACKWARD_LONG), codes1, len1, codes2, len2, tab, 3)
 
 
 def posterior(fm, fcap, bm, bcap, len1, len2, tab):
@@ -151,8 +178,8 @@ def forward_backward_posterior(codes1, len1, codes2, len2, tab):
             side = _SIDE_STREAMS[index] = torch.cuda.Stream()
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            BACKWARD(*args, p(planes[1]), p(bcap), B, imax, W - 1)
-        FORWARD(*args, p(planes[0]), p(fcap), B, imax, W - 1)
+            _launch((BACKWARD, BACKWARD_LONG), args, planes[1], bcap, B, imax, W)
+        _launch((FORWARD, FORWARD_LONG), args, planes[0], fcap, B, imax, W)
         cur.wait_stream(side)
         return _posterior(planes[0], fcap, planes[1], bcap, len1, len2, tab["init"])
 

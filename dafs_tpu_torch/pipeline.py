@@ -8,18 +8,28 @@ DD subgradient loop, final structure decode) run on `device`.
 The ported slice: `Dafs(align_model, fold_model, Options(...),
 alifold_model=Alifold(0.0, bl=...))` with the ProbCons or CONTRAlign
 alignment model, the McCaskill (BL* or Vienna) or CONTRAfold fold model,
-and bp-update (`use_bp_update`, `use_bp_update1`), equals the JAX package's
-`Dafs` of the same arguments.  The consensus is mixed into every merge when
-`Options.use_alifold` is set, and into the final structure whenever an
-`alifold_model` is given (use_alifold1_ is always true in the reference).
-Options outside the slice raise `NotImplementedError` naming the ROADMAP
-item that brings them.
+bp-update (`use_bp_update`, `use_bp_update1`), and the host merge solvers
+(`fold_decoder="IPknot"`, `verbose=2`, `dd_host`, `t_max=0`), equals the
+JAX package's `Dafs` of the same arguments.  The consensus is mixed into
+every merge when `Options.use_alifold` is set, and into the final structure
+whenever an `alifold_model` is given (use_alifold1_ is always true in the
+reference).
+
+The merges of the device DD are solved one guide-tree layer at a time
+(`dd.solve_by_dd_batch`).  The host solvers take the reference's serial
+recursion instead, one merge at a time in its order (left subtree, right
+subtree, then the merge): `dd.solve_by_ip` under `t_max=0`, else
+`dd.solve_by_dd_ipknot` with the IPknot ILPs (IPknot) or the port's
+Nussinov decoder (`verbose >= 2`, `dd_host`).  Options outside the slice
+raise `NotImplementedError` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import io
+import sys
 import time
 
 import numpy as np
@@ -36,14 +46,10 @@ F = np.float32
 
 _QUEUE = "is not ported yet (ROADMAP.md, port queue: {})"
 NOT_PORTED = {
-    "fold_decoder": "--fold-decoder IPknot / --ipknot " + _QUEUE.format("IPknot"),
-    "verbose": "-v 2 (per-iteration dumps) " + _QUEUE.format("-v 2"),
-    "t_max": "-m 0 (the exact ILP) " + _QUEUE.format("-m 0"),
     "n_refinement": "-r (iterative refinement) " + _QUEUE.format("refinement"),
     "w_pct_f": "-f (four-way PCT) " + _QUEUE.format("four-way PCT"),
     "aux": "reading or writing aux files " + _QUEUE.format("aux files"),
     "dd_update": "the adagrad and adam DD update rules " + _QUEUE.format("adagrad/adam"),
-    "dd_host": "the host-loop DD with native decoders " + _QUEUE.format("host DD"),
     "param_file": "-P (parameter files) " + _QUEUE.format("-P"),
 }
 
@@ -63,24 +69,20 @@ class Options:
     use_alifold: bool = True
     use_bp_update: bool = False
     use_bp_update1: bool = False
-    fold_decoder: str = "Nussinov"
+    fold_decoder: str = "Nussinov"  # or "IPknot"
     verbose: int = 0
     save_align_aux: str | None = None
     save_fold_aux: str | None = None
     dd_update: str = "subgradient"
-    dd_host: bool = False
+    dd_host: bool = False  # the host-loop DD with the port's Nussinov decoder
 
     def check_slice(self) -> None:
         """Raise NotImplementedError for any option outside the slice."""
         bad = {
-            "fold_decoder": self.fold_decoder != "Nussinov",
-            "verbose": self.verbose >= 2,
-            "t_max": self.t_max == 0,
             "n_refinement": self.n_refinement > 0,
             "w_pct_f": self.w_pct_f != 0.0,
             "aux": bool(self.save_align_aux or self.save_fold_aux),
             "dd_update": self.dd_update != "subgradient",
-            "dd_host": self.dd_host,
         }
         for key, on in bad.items():
             if on:
@@ -100,11 +102,19 @@ class Dafs:
         self.o = opts
         if self.o.th_s1 is None:
             self.o.th_s1 = self.o.th_s
+        # (iterations, violations at exit) of each merge the host DD loop
+        # solved, in solve order
+        self.host_dd: list[tuple[int, int]] = []
 
     # -- decoders ---------------------------------------------------------
 
     def _decode_structure(self, p: np.ndarray, th_list) -> tuple[np.ndarray, str]:
         """s_decoder1_->decode(p, ss, str): final common structure."""
+        if self.o.fold_decoder == "IPknot":
+            from dafs_tpu_torch.decoders_ip import ipknot
+
+            ss, sstr, _ = ipknot.decode(p, th_list)
+            return ss, sstr
         L = p.shape[0]
         P = -(-L // 32) * 32
         smp = np.full((P, P), np.float32(0.0 - F(th_list[0])), np.float32)
@@ -198,6 +208,30 @@ class Dafs:
         p_z = projection.average_matching_probability(self.mp, aln1, aln2)
         return ps[0], ps[1], p_z
 
+    def _output_verbose(self, x, y, z, aln1, aln2):
+        """Per-DD-iteration dump to standard output (output_verbose,
+        src/dafs.cpp:875-894)."""
+        aln = projection.project_alignment(aln1, aln2, z)
+        xx, yy = projection.project_secondary_structure(x, y, z)
+
+        def brackets(ss):
+            s = ["."] * len(ss)
+            for i in range(len(ss)):
+                if ss[i] >= 0:
+                    s[i] = "("
+                    s[ss[i]] = ")"
+            return "".join(s)
+
+        out = sys.stdout
+        for row in aln[: len(aln1)]:
+            out.write("> " + self.fa[row.seq_id].name + "\n")
+            out.write(gapped_seq(self.fa[row.seq_id].seq, row.mask) + "\n")
+        out.write(brackets(xx) + "\n")
+        for row in aln[len(aln1):]:
+            out.write("> " + self.fa[row.seq_id].name + "\n")
+            out.write(gapped_seq(self.fa[row.seq_id].seq, row.mask) + "\n")
+        out.write(brackets(yy) + "\n\n")
+
     @staticmethod
     def _merge_finish(x, y, z, aln1, aln2):
         """Project one solved merge back to (ss, aln) (src/dafs.cpp:944-951)."""
@@ -206,14 +240,78 @@ class Dafs:
         ss = np.where(xx == yy, xx, -1)
         return ss, aln
 
+    def _host_solver(self, aln1, aln2, trace):
+        """The host solver of one merge (src/dafs.cpp:110-115, 875-894,
+        1091-1092), as the JAX package dispatches it.  The DD loop appends
+        each iteration's (t, s, violated, eta) to `trace`."""
+        if self.o.t_max == 0:
+            # -m 0: the exact joint ILP
+            return dd.solve_by_ip
+        # IPknot's ILPs in the loop, else (-v 2, dd_host) the port's Nussinov
+        # decoder; -v 2 dumps every iteration
+        verbose_cb = (functools.partial(self._output_verbose, aln1=aln1, aln2=aln2)
+                      if self.o.verbose >= 2 else None)
+        return functools.partial(
+            dd.solve_by_dd_ipknot, device=self.device, verbose_cb=verbose_cb,
+            trace_cb=lambda *t: trace.append(t),
+            structure_decoder="ipknot" if self.o.fold_decoder == "IPknot" else "nussinov")
+
+    def _align_alignments(self, aln1, aln2, phases: dict):
+        """One progressive merge by a host solver (src/dafs.cpp:913-981).
+        Returns (s, ss, aln); adds its seconds to `phases`."""
+        t0 = time.perf_counter()
+        p_x, p_y, p_z = self._merge_inputs(aln1, aln2)
+        t1 = time.perf_counter()
+        trace = []
+        s, x, y, z = self._host_solver(aln1, aln2, trace)(
+            p_x, p_y, p_z, len(aln1), len(aln2),
+            w=self.o.w, th_s=list(self.o.th_s), th_a=self.o.th_a,
+            eta0=self.o.eta0, t_max=self.o.t_max,
+        )
+        if trace:
+            self.host_dd.append((len(trace), trace[-1][2]))
+        t2 = time.perf_counter()
+        ss, aln = self._merge_finish(x, y, z, aln1, aln2)
+        t3 = time.perf_counter()
+        self._add_merge_seconds(phases, t1 - t0, t2 - t1, t3 - t2)
+        logger.info(
+            "merge N1=%d N2=%d L=%d: avg+alifold %.2fs, solve %.2fs, project %.2fs",
+            len(aln1), len(aln2), len(aln[0].mask), t1 - t0, t2 - t1, t3 - t2,
+        )
+        return s, ss, aln
+
+    @staticmethod
+    def _add_merge_seconds(phases, prep, solve, project):
+        for name, sec in (("merge avg+alifold", prep), ("merge DD", solve),
+                          ("merge project", project)):
+            phases[name] = phases.get(name, 0.0) + sec
+
+    def _can_batch_merges(self) -> bool:
+        """The layered batched solver covers the device DD only; the ILP,
+        IPknot and the host loops keep the reference's serial recursion."""
+        return (
+            self.o.t_max > 0
+            and self.o.fold_decoder != "IPknot"
+            and self.o.verbose < 2
+            and not self.o.dd_host
+        )
+
     def _align(self, node: int, phases: dict):
         """Progressive alignment under `node` (src/dafs.cpp:1499-1537).
 
-        The reference recursion is strictly serial; here the merges whose
-        children are both complete are solved together, one batched DD solve
-        per layer, with per-merge results equal to the serial path.  Adds the
-        host seconds of the input prep, the DD solves and the projections,
-        summed over layers, to `phases`."""
+        The reference recursion is strictly serial, and the host solvers
+        keep it.  For the device DD, the merges whose children are both
+        complete are solved together, one batched DD solve per layer, with
+        per-merge results equal to the serial path.  Adds the host seconds
+        of the input prep, the solves and the projections, summed over
+        merges, to `phases`."""
+        if not self._can_batch_merges():
+            l, r = self.tree[node][1]
+            if l == -1:
+                return 0.0, None, [AlnRow(node, np.ones(len(self.fa[node]), dtype=bool))]
+            _, _, aln1 = self._align(l, phases)
+            _, _, aln2 = self._align(r, phases)
+            return self._align_alignments(aln1, aln2, phases)
         state: dict[int, tuple] = {}
         internal = []
         stack = [node]
@@ -251,9 +349,7 @@ class Dafs:
                 state[n] = (s, ss, aln)
                 pending.discard(n)
             t3 = time.perf_counter()
-            for name, sec in (("merge avg+alifold", t1 - t0), ("merge DD", t2 - t1),
-                              ("merge project", t3 - t2)):
-                phases[name] = phases.get(name, 0.0) + sec
+            self._add_merge_seconds(phases, t1 - t0, t2 - t1, t3 - t2)
             logger.info(
                 "merge layer (%d merges): avg+alifold %.2fs, solve %.2fs, project %.2fs",
                 len(layer), t1 - t0, t2 - t1, t3 - t2,
@@ -338,5 +434,6 @@ class Dafs:
             phase_seconds=phases,
             similarity=sim,
             consensus_calls=self.alifold.calls[first_call:] if self.alifold is not None else [],
+            host_dd=list(self.host_dd),
         )
         return out.getvalue()

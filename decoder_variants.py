@@ -64,8 +64,7 @@ __device__ __forceinline__ float dafs_lookup_selects(float x) {"""
 VARIANTS = {
     "pairhmm.cu": {
         "tree": ([], True),
-        "no global stores": ([("    if (valid) out[i * W + j] = m_new;\n", ""),
-                              ("    if (valid) out[i * W + j] = bM;\n", "")], False),
+        "no global stores": ([("      out[i * W + j] = M1;\n", "      ;\n")], False),
         "no barrier": ([('  if (nlive > 1) asm volatile("bar.sync 1, %0;\\n" :: "r"(32 * nlive) : "memory");\n', "")], False),
         "constant emissions": ([("m_d = T->match[c17 + cj];", "m_d = T->match[8];"),
                                 ("e2 = T->ins[cj];", "e2 = T->ins[1];"),

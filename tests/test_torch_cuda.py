@@ -261,16 +261,20 @@ def test_pairhmm_fifty_sequence_family(dev):
 
 
 def test_pairhmm_largest_rows_and_just_above(dev):
-    """K1/K2 take up to MAX_IMAX rows (32 warps of a block) and MAX_COLS
-    columns; one above either raises."""
+    """K1/K2 take up to MAX_IMAX rows (32 warps of a block); one row more
+    goes to their long variants, bit-equal too, up to CEILING rows; above
+    that, and above MAX_COLS columns, the wrappers raise."""
     rng = np.random.default_rng(4)
     tab = pairhmm.tables(dev)
     L = pairhmm_cuda.MAX_IMAX - 1
     _pairhmm_equal(_random_pairs(dev, rng, [L, 700], [40, 64], L, 64), tab)
-    over = _random_pairs(dev, rng, [5], [5], L + 1, 64)
-    with pytest.raises(ValueError, match="padded lengths"):
+    before = pairhmm_cuda.FORWARD_LONG.launches
+    _pairhmm_equal(_random_pairs(dev, rng, [L + 1, 1000, 0], [40, 64, 9], L + 1, 64), tab)
+    assert pairhmm_cuda.FORWARD_LONG.launches > before
+    over = _random_pairs(dev, rng, [5], [5], pairhmm_cuda.CEILING, 64)
+    with pytest.raises(ValueError, match="ceiling of 4096"):
         pairhmm_cuda.forward(*over, tab)
-    with pytest.raises(ValueError, match="padded lengths"):
+    with pytest.raises(ValueError, match="ceiling of 4096"):
         pairhmm_cuda.forward_backward_posterior(*over, tab)
     wide = _random_pairs(dev, rng, [5], [5], 32, pairhmm_cuda.MAX_COLS)
     with pytest.raises(ValueError, match="padded lengths"):
@@ -280,26 +284,76 @@ def test_pairhmm_largest_rows_and_just_above(dev):
 def test_largest_shapes_and_just_above(dev):
     """K3 takes L up to 1024 (tables and codes in global memory there); K4
     takes L2 + 1 <= 1024 columns and L1 rows while its shared memory fits
-    (771 rows at 1023 columns).  One step above either raises."""
+    (771 rows at 1023 columns).  One step above either goes to the long
+    variant, bit-equal; above 4096 the wrappers raise naming the ceiling."""
     rng = np.random.default_rng(3)
     sm, lens = _nussinov_stress(dev, rng, 1, nussinov_cuda.MAX_L, 0)
     _equal(nussinov.decode(sm, lens), nussinov.decode_plain(sm, lens))
-    over = nussinov_cuda.MAX_L + 1
-    with pytest.raises(ValueError, match="padded length"):
-        nussinov_cuda.decode(torch.zeros((1, over, over), device=dev),
-                             torch.tensor([over], dtype=torch.int32, device=dev))
+    over = nussinov_cuda.MAX_L + 32
+    sm, lens = _nussinov_stress(dev, rng, 2, over, 1)
+    _equal(nussinov.decode(sm, lens), nussinov.decode_plain(sm, lens))
+    with pytest.raises(ValueError, match="ceiling of 4096"):
+        nussinov_cuda.decode(torch.zeros((1, 4097, 4097), device=dev),
+                             torch.tensor([5], dtype=torch.int32, device=dev))
     L2 = nw_cuda.MAX_COLS - 1
     L1 = max(n for n in range(1, 2000)
              if nw_cuda.smem_bytes(n, L2) <= nw_cuda.MAX_SMEM_BYTES)
     args = _nw_stress(dev, rng, 1, L1, L2, 0)
     _equal(nw.decode(*args), nw.decode_plain(*args))
-    with pytest.raises(ValueError, match="shared memory"):
-        nw_cuda.decode(torch.zeros((1, L1 + 1, L2), device=dev),
-                       *(torch.zeros((1, L1 + 2), dtype=torch.int32, device=dev),) * 2,
-                       torch.tensor([1], dtype=torch.int32, device=dev),
-                       torch.tensor([1], dtype=torch.int32, device=dev))
-    with pytest.raises(ValueError, match="padded shape"):
-        nw_cuda.decode(torch.zeros((1, 8, L2 + 1), device=dev),
+    for shape in ((L1 + 1, L2), (64, L2 + 1), (1056, 1056)):
+        assert nw_cuda.is_long(*shape)
+        args = _nw_stress(dev, rng, 2, *shape, 1)
+        _equal(nw.decode(*args), nw.decode_plain(*args))
+    with pytest.raises(ValueError, match="ceiling of 4096"):
+        nw_cuda.decode(torch.zeros((1, 8, 4097), device=dev),
                        *(torch.zeros((1, 9), dtype=torch.int32, device=dev),) * 2,
                        torch.tensor([1], dtype=torch.int32, device=dev),
                        torch.tensor([1], dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("L", [1056, 2048])
+def test_long_variants_match_plain(L, dev):
+    """Each long variant past its kernel's old limit, bit-equal to its plain
+    version: K1/K2 and the posteriors at imax = L rows (B = 2), K3 at
+    padded L (B = 1 and 2), K4 at L x L."""
+    rng = np.random.default_rng(L)
+    _pairhmm_equal(_random_pairs(dev, rng, [L - 1, L - 40], [L - 9, L - 1], L - 1, L - 1),
+                   pairhmm.tables(dev))
+    for B in (1, 2):
+        sm, lens = _nussinov_stress(dev, rng, B, L, 0)
+        _equal(nussinov.decode(sm, lens), nussinov.decode_plain(sm, lens))
+    args = _nw_stress(dev, rng, 2, L, L, 0)
+    _equal(nw.decode(*args), nw.decode_plain(*args))
+
+
+def test_host_dd_matches_cpu(dev):
+    """The host-loop DD on the card (K3 and K4 every iteration) equals its
+    CPU run (the plain decoders) on random problems, under both structure
+    decoders."""
+    from dafs_tpu_torch import dd
+    from tests.merge_problems import KW, PROBLEMS, _problem
+
+    for problem in PROBLEMS:
+        p_x, p_y, p_z = _problem(*problem[:3])
+        for decoder in ("nussinov", "ipknot"):
+            runs = []
+            for device in (dev, "cpu"):
+                trace = []
+                out = dd.solve_by_dd_ipknot(p_x, p_y, p_z, *problem[3:], device=device,
+                                            t_max=80, structure_decoder=decoder,
+                                            trace_cb=lambda *a, trace=trace: trace.append(a),
+                                            **KW)
+                runs.append((out, trace))
+            (got, got_tr), (want, want_tr) = runs
+            assert got[0] == want[0] and got_tr == want_tr
+            for g, w in zip(got[1:], want[1:]):
+                np.testing.assert_array_equal(g, w)
+
+
+def test_rf00017_frozen_replay(dev):
+    """The RF00017 frozen replay through the host-loop DD with K3 and K4:
+    the tree line, SS_cons and every row equal the frozen output (as
+    chip_smoke.py's solvers phase checks)."""
+    import chip_smoke
+
+    chip_smoke.replay_rf00017(dev)

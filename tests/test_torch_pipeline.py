@@ -201,10 +201,13 @@ def test_fold_model_without_bl_runs():
     {},
     dict(align_model="CONTRAlign", fold_model="CONTRAfold"),
     dict(use_bp_update=True, use_bp_update1=True),
+    dict(fold_decoder="IPknot", th_s=(0.2, 1 / 9.0), th_s1=(1 / 3.0, 0.2), use_bp_update1=True),
+    dict(t_max=0),
 ])
 def test_port_runs_without_jax(kw):
-    """The default path, path (a) (CONTRAlign, CONTRAfold) and path (b)
-    (bp-update) with `jax` blocked: nothing of JAX or `dafs_tpu` loads."""
+    """The default path, path (a) (CONTRAlign, CONTRAfold), path (b)
+    (bp-update), `--ipknot` and `-m 0` with `jax` blocked: nothing of JAX or
+    `dafs_tpu` loads."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -219,7 +222,7 @@ def test_port_runs_without_jax(kw):
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert re.fullmatch(r"[().]+", proc.stdout.strip())
+    assert re.fullmatch(r"[().\[\]]+", proc.stdout.strip())
 
 
 @pytest.fixture
@@ -260,10 +263,6 @@ def test_cli_without_flags_runs(tiny_fa, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--ipknot"],
-    ["--fold-decoder", "IPknot"],
-    ["-m", "0"],
-    ["-v", "2"],
     ["-r", "1"],
     ["-f", "0.5"],
     ["--align-aux", "mp.txt"],
@@ -276,6 +275,22 @@ def test_cli_without_flags_runs(tiny_fa, capsys):
 def test_cli_options_outside_the_slice_raise(argv, tiny_fa):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main([*argv, "--device", "cpu", tiny_fa])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--ipknot"],
+    ["--fold-decoder", "IPknot"],
+    ["-m", "0"],
+    ["-v", "2"],
+])
+def test_host_solver_options_run(argv, tiny_fa, capsys):
+    """The host merge solvers' options, which raised before they were
+    ported, run through the CLI (their bytes against the JAX CLI are held
+    in tests/test_torch_solvers.py)."""
+    assert cli.main([*argv, "--device", "cpu", tiny_fa]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert ">SS_cons" in lines and [l for l in lines if l.startswith("> ")][-3:] == [
+        "> a", "> b", "> c"]
 
 
 @pytest.mark.parametrize("kw", [dict(n_refinement=2), dict(dd_update="adam")])
