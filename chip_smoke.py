@@ -73,8 +73,27 @@
    last.  Every launch count in it was read after a run whose counts were
    set to 0 just before: `launches` from the default path's two runs (the
    slice phase, where the variants too are counted), `launches_by_path`
-   from each run of the paths and solvers phases, and for the variants
-   also `launches_length_phase`.
+   from each run of the paths, solvers and options phases, and for the
+   variants also `launches_length_phase`.
+9. Options phase (after the solvers phase): `dafs_tpu`'s last single-card
+   options on RF00005 through `align_and_fold` with the keywords the CLI
+   builds, counts set to 0 before each run: (g) `-r 2` (each refinement's
+   groups and s_new against s; the final score at least the score before
+   refinement), (h) `-f 0.5` (before it, the four-way products on
+   RF00005's own posteriors on the card against the CPU, 1e-6, with the
+   entries that cross CUTOFF), (i) `--dd-update adagrad`, (j)
+   `--dd-update adam` (each merge's DD iterations and violations at exit),
+   (k) `--save-align-aux` / `--save-fold-aux` into `build/`, then a run
+   from `--align-aux` / `--fold-aux` (the arrays read back bit-equal to the
+   first run's, its tree, `SS_cons` and rows equal, no pair-HMM launch),
+   (l) `-P tests/data/ml_ninio.par` (the fold posteriors change; reset to
+   `{}` after, a default run then prints the slice phase's RF00005 bytes).
+   Each run: every row its input with gaps, `SS_cons` balanced, the tree
+   topology equal to `dafs_tpu`'s CPU output
+   (`tests/snapshots/rf00005_{refine2,fourway,adagrad,adam,param_file}_cpu.txt`),
+   and `SS_cons` and rows too where no merge stopped at the 600 cap.  Then
+   `-f 0.5 -r 1` on RF00017, held to rows, balance and score.  Prints each
+   run's wall, phase split, DD merges and launches.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
 """
@@ -830,6 +849,7 @@ def slice_phase(dev):
               f"{len(snap_rows)} rows identical")
         if fa_name.startswith("RF00005") and (res.ss_cons != snap_ss or res.rows != snap_rows):
             raise AssertionError(f"{fa_name}: SS_cons or rows differ from the TPU snapshot")
+        SLICE_OUTPUT[fa_name] = str(res)
         if fa_name.startswith("RF00017"):
             sim = np.load(os.path.join(SNAP, "rf00017_replay.npz"))["sim"]
             print(f"RF00017 similarity: max |port - recorded| = "
@@ -938,12 +958,16 @@ SOLVER_RUNS = [
 
 
 def cli_options(flags):
-    """The `align_and_fold` keywords the port's CLI builds from `flags`."""
+    """The `align_and_fold` keywords the port's CLI builds from `flags`: every
+    `pipeline.Options` field, the models, the aux inputs and `-P`."""
+    import dataclasses
+
     from dafs_tpu_torch import cli
 
-    o = cli.options_from_args(cli.build_parser().parse_args([*flags, "x.fa"]))
-    return dict(th_s=o.th_s, th_s1=o.th_s1, use_bp_update1=o.use_bp_update1,
-                fold_decoder=o.fold_decoder, t_max=o.t_max, verbose=o.verbose)
+    args = cli.build_parser().parse_args([*flags, "x.fa"])
+    return dict(dataclasses.asdict(cli.options_from_args(args)),
+                align_model=args.align_model, fold_model=args.fold_model,
+                align_aux=args.align_aux, fold_aux=args.fold_aux, param_file=args.param_file)
 
 
 def check_levels(name, ss):
@@ -1137,6 +1161,212 @@ def solvers_phase(dev):
     return by_path
 
 
+# ---------------------------------------------------------------- options --
+# The last single-card options of `dafs_tpu`: refinement (`-r`), four-way PCT
+# (`-f`), the adagrad and adam DD updates, the aux files and a parameter file
+# (`-P`), each through `align_and_fold` with the keywords the port's CLI
+# builds, K1-K4 on the path of every run but the aux reload's.
+
+PAR_FILE = os.path.join(DATA, "ml_ninio.par")
+T_MAX = 600
+# (run, CLI flags, dafs_tpu's CPU output of it on RF00005)
+OPTION_RUNS = [
+    ("g", ["-r", "2"], "rf00005_refine2_cpu.txt"),
+    ("h", ["-f", "0.5"], "rf00005_fourway_cpu.txt"),
+    ("i", ["--dd-update", "adagrad"], "rf00005_adagrad_cpu.txt"),
+    ("j", ["--dd-update", "adam"], "rf00005_adam_cpu.txt"),
+    ("l", ["-P", PAR_FILE], "rf00005_param_file_cpu.txt"),
+]
+# the default path's RF00005 output of the slice phase
+SLICE_OUTPUT: dict = {}
+
+
+def report_run(label, res, wall, counts, fa, by_path, need=PAIRHMM + ("nussinov", "nw")):
+    """Prints a run's wall, phase split, DD merges and launches; checks rows,
+    balance and the launches of `need`."""
+    for name, n in counts.items():
+        by_path[name][label] = n
+    phases = ", ".join(f"{k} {v:.3f}s" for k, v in res.phase_seconds.items())
+    iters = sum(t for t, _ in res.device_dd)
+    print(f"{label}: {wall:.3f}s wall; {phases}; device DD {iters} iterations over "
+          f"{len(res.device_dd)} merges (iterations, violations at exit: {res.device_dd}); "
+          f"launch counts {counts}", flush=True)
+    for name in need:
+        if counts[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched")
+    check_rows(res, fa)
+    check_balanced(label, res.ss_cons)
+
+
+def against_snapshot(label, res, ref_name):
+    """The tree topology against dafs_tpu's CPU output; SS_cons and rows too
+    where no merge stopped at the iteration cap."""
+    against_reference(label, res, ref_name)
+    capped = [m for m in res.device_dd if m[0] >= T_MAX and m[1] > 0]
+    _, ref_ss, _, ref_rows = read_snapshot(ref_name)
+    if not capped and (res.ss_cons != ref_ss or res.rows != ref_rows):
+        raise AssertionError(f"{label}: no merge was capped, yet SS_cons or rows differ "
+                             f"from {ref_name}")
+    print(f"{label}: {len(capped)} merges stopped at the {T_MAX}-iteration cap; "
+          f"{'columns printed above' if capped else 'SS_cons and rows equal the snapshot'}",
+          flush=True)
+
+
+def check_refinements(label, res):
+    for k, r in enumerate(res.refinements):
+        print(f"{label} refinement {k + 1}: groups {r['groups'][0]} | {r['groups'][1]}; "
+              f"s_new {r['s_new']!r} against s {r['s']!r} -> "
+              f"{'kept' if r['s_new'] > r['s'] else 'dropped'}", flush=True)
+    if not res.refinements or not res.score >= res.refinements[0]["s"]:
+        raise AssertionError(f"{label}: final score {res.score!r} below the score before "
+                             "refinement")
+
+
+def fourway_on_card(dev, fa):
+    """Four-way PCT on RF00005's own posteriors, the card against the port's
+    CPU version (1e-6)."""
+    from dafs_tpu_torch import consistency
+    from dafs_tpu_torch.models import align_models, fold_models
+    from dafs_tpu_torch.typedefs import CUTOFF
+
+    lens = [len(f) for f in fa]
+    bp = fold_models.by_name("Boltzmann", CUTOFF).all_seqs(fa, dev)
+    mp = align_models.by_name("ProbCons", 0.01).all_pairs(fa, dev)
+    card = consistency.relax_fourway_consistency(mp, bp, lens, 0.5, dev)
+    ms = once_ms(lambda: consistency.relax_fourway_consistency(mp, bp, lens, 0.5, dev))
+    t0 = time.perf_counter()
+    cpu = consistency.relax_fourway_consistency(mp, bp, lens, 0.5, "cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(card.astype(np.float64) - cpu).max())
+    moved = int(((mp > CUTOFF) != (cpu > CUTOFF)).sum())
+    sides = int(((card > CUTOFF) != (cpu > CUTOFF)).sum())
+    print(f"four-way PCT on RF00005 (45 pairs, L {max(lens)}): card against CPU "
+          f"max_abs_err={err!r} (bound 1e-6); {moved} entries cross CUTOFF under the "
+          f"transform, {sides} fall on different sides on the card and the CPU; "
+          f"{ms:.3f} ms on the card (with the copies), {cpu_ms:.1f} ms on the CPU", flush=True)
+    if not err <= 1e-6:
+        raise AssertionError("four-way PCT: the card's result differs from the CPU's")
+
+
+class recorded_posteriors:
+    """Records the posteriors every model returns (`mp` and `bp`) while on."""
+
+    def __init__(self, store):
+        from dafs_tpu_torch.models import align_models, fold_models
+
+        self.store = store
+        self.targets = [(align_models.AlignModel, "all_pairs", "mp"),
+                        (align_models.AUXAlign, "all_pairs", "mp"),
+                        (fold_models.FoldModel, "all_seqs", "bp"),
+                        (fold_models.AUXFold, "all_seqs", "bp")]
+
+    def __enter__(self):
+        self.saved = [getattr(cls, name) for cls, name, _ in self.targets]
+        for (cls, name, key), fn in zip(self.targets, self.saved):
+            def rec(*a, _fn=fn, _key=key, **kw):
+                out = _fn(*a, **kw)
+                self.store[_key] = out.copy()
+                return out
+            setattr(cls, name, rec)
+        return self.store
+
+    def __exit__(self, *exc):
+        for (cls, name, _), fn in zip(self.targets, self.saved):
+            setattr(cls, name, fn)
+
+
+def aux_round_trip(dev, fa, by_path):
+    """(k): dump the posteriors, then run again from the dumps."""
+    import shutil
+
+    d = os.path.join(ROOT, "build", "chip_smoke_aux")
+    os.makedirs(d, exist_ok=True)
+    mp_path, bp_path = os.path.join(d, "mp.txt"), os.path.join(d, "bp.txt")
+    try:
+        first_arrays, again_arrays = {}, {}
+        with recorded_posteriors(first_arrays):
+            first, wall, counts = timed_run(fa, dev, **cli_options(
+                ["--save-align-aux", mp_path, "--save-fold-aux", bp_path]))
+        report_run("(k) --save-align-aux --save-fold-aux RF00005_0.fa", first, wall, counts,
+                   fa, by_path)
+        sizes = [os.path.getsize(p) for p in (mp_path, bp_path)]
+        with recorded_posteriors(again_arrays):
+            again, wall, counts = timed_run(fa, dev, **cli_options(
+                ["--align-aux", mp_path, "--fold-aux", bp_path]))
+        label = "(k) --align-aux --fold-aux RF00005_0.fa"
+        report_run(label, again, wall, counts, fa, by_path, need=("nussinov", "nw"))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    same = {k: bool(np.array_equal(first_arrays[k], again_arrays[k])) for k in ("mp", "bp")}
+    print(f"(k) dumps of {sizes[0]} and {sizes[1]} bytes; read back bit-equal to the first "
+          f"run's: {same}; reload's tree {'equal' if again.tree == first.tree else 'DIFFERS'}, "
+          f"SS_cons {'equal' if again.ss_cons == first.ss_cons else 'DIFFERS'}, rows "
+          f"{'equal' if again.rows == first.rows else 'DIFFER'}", flush=True)
+    if not all(same.values()):
+        raise AssertionError("(k): the aux files do not read back the first run's posteriors")
+    if any(counts[name] for name in PAIRHMM):
+        raise AssertionError(f"(k): a pair-HMM kernel ran in the reload: {counts}")
+    if (again.tree, again.ss_cons, again.rows) != (first.tree, first.ss_cons, first.rows):
+        raise AssertionError("(k): the reload's output differs from the first run's")
+
+
+def param_file_runs(dev, fa, by_path, flags, ref_name):
+    """(l): `-P` with the test's parameter file, then the overrides reset and
+    a default run."""
+    from dafs_tpu_torch.ops import energy_params, mccaskill
+
+    label = f"(l) -P {os.path.relpath(PAR_FILE, ROOT)} RF00005_0.fa"
+    seq = fa[0].seq
+    plain = mccaskill.batch_bp_posteriors_fast([seq], 0.0, dev)[0]
+    try:
+        res, wall, counts = timed_run(fa, dev, **cli_options(flags))
+        print(f"(l) overrides in force: {energy_params.PARAM_OVERRIDES}")
+        changed = mccaskill.batch_bp_posteriors_fast([seq], 0.0, dev)[0]
+    finally:
+        energy_params.set_param_overrides({})
+    report_run(label, res, wall, counts, fa, by_path)
+    against_snapshot(label, res, ref_name)
+    moved = float(np.abs(changed.astype(np.float64) - plain).max())
+    print(f"(l) {fa[0].name}'s fold posteriors under the overrides: max |change| = "
+          f"{moved!r}", flush=True)
+    if not moved > 0.0 or energy_params.PARAM_OVERRIDES:
+        raise AssertionError("(l): the parameter file did not change the fold, or stayed")
+    default, wall, counts = timed_run(fa, dev)
+    report_run("(l) default after the reset RF00005_0.fa", default, wall, counts, fa, by_path)
+    if str(default) != SLICE_OUTPUT["RF00005_0.fa"]:
+        raise AssertionError("(l): after the reset the default output differs from the "
+                             "slice phase's")
+    print("(l) after the reset the default output equals the slice phase's", flush=True)
+
+
+def options_phase(dev):
+    """Runs (g)-(l) on RF00005 and `-f 0.5 -r 1` on RF00017; returns
+    {kernel name: {run label: launches}}."""
+    by_path = {name: {} for name in all_kernels()}
+    fa = read_fasta("RF00005_0.fa")
+    for run, flags, ref_name in OPTION_RUNS:
+        if run == "h":
+            fourway_on_card(dev, fa)
+        if run == "l":
+            aux_round_trip(dev, fa, by_path)
+            param_file_runs(dev, fa, by_path, flags, ref_name)
+            continue
+        label = f"({run}) {' '.join(flags)} RF00005_0.fa"
+        res, wall, counts = timed_run(fa, dev, **cli_options(flags))
+        report_run(label, res, wall, counts, fa, by_path)
+        if run == "g":
+            check_refinements(label, res)
+        against_snapshot(label, res, ref_name)
+
+    fa = read_fasta("RF00017_4.fa")
+    label = "-f 0.5 -r 1 RF00017_4.fa"
+    res, wall, counts = timed_run(fa, dev, **cli_options(["-f", "0.5", "-r", "1"]))
+    report_run(label, res, wall, counts, fa, by_path)
+    check_refinements(label, res)
+    print(f"{label}: SS_cons {res.ss_cons}", flush=True)
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -1164,6 +1394,8 @@ def main() -> int:
     counts = run("slice", slice_phase)
     by_path = run("paths", paths_phase)
     for name, runs in run("solvers", solvers_phase).items():
+        by_path[name].update(runs)
+    for name, runs in run("options", options_phase).items():
         by_path[name].update(runs)
     for name, row in rows.items():
         row["launches"] = counts[name]

@@ -6,16 +6,15 @@
 >>> res.ss_cons
 '((((....))))'
 
-The port of `dafs_tpu.align_and_fold` for the slice that is ported so far:
+The port of `dafs_tpu.align_and_fold`, with every option of one device:
 the ProbCons or CONTRAlign alignment model, the BL* or Vienna McCaskill or
-the CONTRAfold fold model, bp-update, the RNAalifold consensus mixed
-into every merge and into the final structure, and the host merge solvers
-(`fold_decoder="IPknot"`, `t_max=0`, `verbose=2`, `dd_host=True`).
-`use_alifold=False` drops the mix from the merges only, as in the JAX
-package.  Keyword arguments override `pipeline.Options` fields; the options
-still outside the slice (`n_refinement`, `w_pct_f`, the aux files,
-`dd_update` other than "subgradient") raise `NotImplementedError` naming
-the ROADMAP item that brings them.
+the CONTRAfold fold model, the RNAalifold consensus mixed into every merge
+and into the final structure, and every `pipeline.Options` field
+(bp-update, the host merge solvers, the DD update rules, four-way PCT,
+refinement, the aux dumps).  `use_alifold=False` drops the mix from the
+merges only, as in the JAX package.  Beyond the JAX package's API it takes
+the CLI's aux-file inputs (`align_aux`, `fold_aux`) and parameter file
+(`param_file`, which, as `-P` does, sets a process-wide override).
 """
 
 from __future__ import annotations
@@ -38,12 +37,17 @@ class Result:
     score: float         # final joint objective value
     # host wall seconds per pipeline phase, the (N, N) similarity matrix,
     # one record per RNAalifold consensus call (`ops.alifold.Alifold.calls`),
-    # and (iterations, violations at exit) of each merge that the host DD
-    # loop solved (`--ipknot`, `-v 2`, `dd_host`), in solve order
+    # (iterations, violations at exit) of each merge in solve order, one list
+    # for the host DD loop (`--ipknot`, `-v 2`, `dd_host`) and one for the
+    # device DD, and per refinement (`n_refinement`) its two groups of
+    # sequence ids, the score before it and the merge's score (`groups`,
+    # `s`, `s_new`; the merge is kept when s_new > s)
     phase_seconds: dict = dataclasses.field(default_factory=dict)
     similarity: np.ndarray | None = None
     consensus_calls: list = dataclasses.field(default_factory=list)
     host_dd: list = dataclasses.field(default_factory=list)
+    device_dd: list = dataclasses.field(default_factory=list)
+    refinements: list = dataclasses.field(default_factory=list)
 
     def __str__(self) -> str:
         lines = [self.tree, ">SS_cons", self.ss_cons]
@@ -62,6 +66,26 @@ def _records(seqs, names) -> list[Fasta]:
     return [Fasta(n, s) for n, s in zip(names, seqs)]
 
 
+def make_dafs(opts, *, device, align_model="ProbCons", fold_model="Boltzmann",
+              align_aux=None, fold_aux=None):
+    """The `pipeline.Dafs` of `opts` and the named models, as the CLI builds
+    it (`dafs_tpu/cli.py:207-231`): an aux file replaces its model, and the
+    consensus takes the BL* parameters exactly when `fold_model` is
+    "Boltzmann"."""
+    from dafs_tpu_torch import pipeline
+    from dafs_tpu_torch.models import align_models, fold_models
+    from dafs_tpu_torch.ops import alifold
+    from dafs_tpu_torch.typedefs import CUTOFF
+
+    a_model = (align_models.AUXAlign(align_aux, opts.th_a) if align_aux
+               else align_models.by_name(align_model, opts.th_a))
+    s_model = (fold_models.AUXFold(fold_aux, CUTOFF) if fold_aux
+               else fold_models.by_name(fold_model, CUTOFF))
+    return pipeline.Dafs(a_model, s_model, opts,
+                         alifold_model=alifold.Alifold(0.0, bl=fold_model == "Boltzmann"),
+                         device=device)
+
+
 def align_and_fold(
     seqs_or_path,
     names=None,
@@ -70,6 +94,9 @@ def align_and_fold(
     align_model: str = "ProbCons",
     fold_model: str = "Boltzmann",
     use_alifold: bool = True,
+    align_aux: str | None = None,
+    fold_aux: str | None = None,
+    param_file: str | None = None,
     **options,
 ) -> Result:
     """Align and fold a set of RNA sequences on `device`.
@@ -85,22 +112,25 @@ def align_and_fold(
         the BL* parameters under "Boltzmann" and Vienna's otherwise.
       use_alifold: mix the RNAalifold consensus into every merge (the final
         structure always mixes it in).
+      align_aux, fold_aux: read the match or base-pair posteriors from a
+        file in the reference's aux format (`--align-aux`, `--fold-aux`)
+        instead of computing them.
+      param_file: a ViennaRNA v2.0 parameter file (`-P`), installed before
+        any model is built; the override stays for the rest of the process
+        (`ops.energy_params.set_param_overrides({})` removes it).
       **options: overrides for pipeline.Options fields (w, t_max, eta0, th_a,
-        th_s, th_s1, w_pct_a, w_pct_s, use_bp_update, use_bp_update1,
-        fold_decoder, verbose, dd_host, ...).
+        th_s, th_s1, w_pct_a, w_pct_s, w_pct_f, n_refinement, dd_update,
+        use_bp_update, use_bp_update1, fold_decoder, verbose, dd_host,
+        save_align_aux, save_fold_aux, ...).
     """
     from dafs_tpu_torch import pipeline
-    from dafs_tpu_torch.models import align_models, fold_models
-    from dafs_tpu_torch.ops import alifold
-    from dafs_tpu_torch.typedefs import CUTOFF
 
+    if param_file:
+        from dafs_tpu_torch.ops.param_file import apply_param_file
+
+        apply_param_file(param_file)
     opts = dataclasses.replace(pipeline.Options(**options), use_alifold=use_alifold)
-    d = pipeline.Dafs(
-        align_models.by_name(align_model, opts.th_a),
-        fold_models.by_name(fold_model, CUTOFF),
-        opts,
-        alifold_model=alifold.Alifold(0.0, bl=fold_model == "Boltzmann"),
-        device=device,
-    )
+    d = make_dafs(opts, device=device, align_model=align_model, fold_model=fold_model,
+                  align_aux=align_aux, fold_aux=fold_aux)
     d.run(_records(seqs_or_path, names))
     return Result(**d.result)

@@ -4,7 +4,9 @@
 Usage: python -m dafs_tpu_torch.cli [-a ProbCons|CONTRAlign]
        [-s Boltzmann|Vienna|CONTRAfold] [--bp-update] [--bp-update1]
        [--ipknot | --fold-decoder IPknot] [-m T] [-v N] [--no-alifold]
-       [--profile DIR] [--device cuda] FILE
+       [-r N] [-f W] [--dd-update subgradient|adagrad|adam]
+       [--align-aux F] [--fold-aux F] [--save-align-aux F] [--save-fold-aux F]
+       [-P FILE] [--profile DIR] [--device cuda] FILE
 
 The option surface is the JAX CLI's, plus `--device`.  Without options it
 runs DAFS's default path.  `--no-alifold` drops the RNAalifold consensus
@@ -12,9 +14,10 @@ mix from the progressive merges; the final structure mixes it in all the
 same, as in the JAX CLI and the reference (use_alifold1_ is always true).
 `--ipknot`, `-m 0` and `-v 2` run the host merge solvers (IPknot's ILPs in
 the DD loop, the exact joint ILP, the host DD loop with per-iteration
-dumps).  The options still outside the ported slice (`-r`, `-f`,
-`--dd-update adagrad|adam`, the aux files, `-P`) raise NotImplementedError
-naming the ROADMAP item that brings them.
+dumps).  `-r N` refines N times by random bipartition, `-f W` adds the
+four-way PCT, `--dd-update` picks the DD's multiplier step, the aux options
+read or dump the posteriors in the reference's text format, and `-P` loads
+a ViennaRNA parameter file (a process-wide override, as in the JAX CLI).
 """
 
 from __future__ import annotations
@@ -171,31 +174,23 @@ def main(argv=None) -> int:
         print(f"{args.input}: No such file or directory", file=sys.stderr)
         return 1
 
-    from dafs_tpu_torch import pipeline
+    if args.param_file:
+        # before any model is built (dafs_tpu/cli.py:166-169)
+        from dafs_tpu_torch.ops.param_file import apply_param_file
+
+        apply_param_file(args.param_file)
+
+    from dafs_tpu_torch.api import make_dafs
     from dafs_tpu_torch.fasta import load_fasta
-    from dafs_tpu_torch.models import align_models, fold_models
-    from dafs_tpu_torch.ops import alifold
-    from dafs_tpu_torch.typedefs import CUTOFF
     from dafs_tpu_torch.utils.log import set_verbosity
 
-    if args.param_file:
-        raise NotImplementedError(pipeline.NOT_PORTED["param_file"])
-    if args.align_aux or args.fold_aux:
-        raise NotImplementedError(pipeline.NOT_PORTED["aux"])
-    opts = options_from_args(args)
-    opts.check_slice()
     set_verbosity(args.verbose)
-
     # The final decode always mixes in the consensus regardless of
     # --no-alifold (src/dafs.cpp:81-82,1696), so the model is built
     # unconditionally; --no-alifold only gates the merge steps.
-    d = pipeline.Dafs(
-        align_models.by_name(args.align_model, args.align_th),
-        fold_models.by_name(args.fold_model, CUTOFF),
-        opts,
-        alifold_model=alifold.Alifold(0.0, bl=args.fold_model == "Boltzmann"),
-        device=args.device,
-    )
+    d = make_dafs(options_from_args(args), device=args.device,
+                  align_model=args.align_model, fold_model=args.fold_model,
+                  align_aux=args.align_aux, fold_aux=args.fold_aux)
     fa = load_fasta(args.input)
     if args.profile:
         out = _profiled(d, fa, args.profile)

@@ -9,12 +9,17 @@ Port of `dafs_tpu/consistency.py` (single device):
   p'(x_i,y_j) = sum_z w_z sum_k p(z_k,x_i) p(z_k,y_j) as batched matrix
   products over the padded (N, N, L, L) posterior tensor;
 - relax_basepairing_probability (src/dafs.cpp:326-375):
-  p'_x = sum_y w_y * M_yx^T B_y M_yx, likewise.
+  p'_x = sum_y w_y * M_yx^T B_y M_yx, likewise;
+- relax_fourway_consistency (src/dafs.cpp:377-444, `-f`): the four-way PCT
+  coupling match and pair posteriors, as two batched matrix chains.
 
 The similarity DP is max-plus code and matches the JAX package bit for
 bit.  The PCT products run through `torch.matmul` (full float32: TF32 is off
 at package import); their sums reduce in another order than XLA's, so they
-agree to float32 rounding.
+agree to float32 rounding.  The four-way products are numpy's in `dafs_tpu`;
+on the CPU `torch.matmul` reduces as numpy's BLAS does and the result is
+bit-equal; cuBLAS on the card may order the sums otherwise, so the card is
+held to the CPU by tolerance.
 """
 
 from __future__ import annotations
@@ -185,4 +190,42 @@ def relax_basepairing_probability(
     for x in range(N):
         out[x, lens[x]:, :] = 0.0
         out[x, :, lens[x]:] = 0.0
+    return out
+
+
+def relax_fourway_consistency(
+    mp: np.ndarray, bp: np.ndarray, lens: list[int], w_pct_f: float, device
+) -> np.ndarray:
+    """Four-way PCT (src/dafs.cpp:377-444), coupling match and pair posteriors.
+
+    posterior[i][k] = (1-w) p_ik + w [p_ik > 0] (sum_{j,l} p^x_ij p_jl p^y_kl
+    + sum_{j,l} p^x_ji p_jl p^y_lk), all N(N-1)/2 pairs as one batched
+    product on `device`, in `dafs_tpu`'s association and order:
+    (B_x P) B_y^T and (B_x^T P) B_y, each added as post + (w * mask) * term.
+    Entries <= CUTOFF are dropped; mp[y, x] is the transpose and mp[x, x]
+    the identity."""
+    N, _, L, _ = mp.shape
+    pairs = [(x, y) for x in range(N - 1) for y in range(x + 1, N)]
+    out = np.zeros_like(mp)
+    if pairs:
+        f = np.float32
+        xs = [x for x, _ in pairs]
+        ys = [y for _, y in pairs]
+        dev = torch.device(device)
+        P = torch.from_numpy(mp[xs, ys]).to(dev)
+        bx = torch.from_numpy(bp[xs]).to(dev)
+        by = torch.from_numpy(bp[ys]).to(dev)
+        wm = (P > 0.0).to(torch.float32) * f(w_pct_f).item()
+        post = P * f(1.0 - w_pct_f).item()
+        post = post + wm * torch.matmul(torch.matmul(bx, P), by.transpose(1, 2))
+        post = post + wm * torch.matmul(torch.matmul(bx.transpose(1, 2), P), by)
+        post = torch.where(post <= CUTOFF, 0.0, post).cpu().numpy()
+        for b, (x, y) in enumerate(pairs):
+            p = post[b]
+            p[lens[x]:, :] = 0.0
+            p[:, lens[y]:] = 0.0
+            out[x, y] = p
+            out[y, x] = p.T
+    for x in range(N):
+        out[x, x][np.arange(lens[x]), np.arange(lens[x])] = 1.0
     return out

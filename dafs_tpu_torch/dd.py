@@ -1,7 +1,8 @@
 """Dual-decomposition solver for the progressive-merge steps.
 
 Port of `dafs_tpu/dd.py` (DAFS::solve_by_dd, src/dafs.cpp:1006-1295) with
-the subgradient update rule.  The merges of one guide-tree layer are solved
+its three multiplier update rules (subgradient, adagrad, adam;
+src/dafs.cpp:984-1004).  The merges of one guide-tree layer are solved
 together: every iteration runs ONE batched Nussinov decode over the x and y
 problems of all merges (kernel K3 on the card), ONE batched NW decode over
 their alignments (kernel K4), the violation counts over the consensus
@@ -9,8 +10,9 @@ base-pair candidates, and the sparse multiplier updates (as masked dense
 updates; the reference's SPARSE_UPDATE branch touches exactly the cells
 these masks select).
 
-Merges that converge are frozen by a `done` mask, as the JAX package's
-batched while_loop freezes them, so each merge's result equals its own
+Merges that converge are frozen by a `done` mask (their multipliers and
+optimiser state alike), as the JAX package's batched while_loop freezes
+them, so each merge's result equals its own
 solve whenever the host looks at the mask.  The iterations are driven from a
 Python loop; a CUDA graph or a persistent kernel is later work.
 
@@ -126,12 +128,30 @@ def _prep_dd_problem(p_x, p_y, p_z, n1, n2, *, w, th_s, th_a, P1, P2, U):
     )
 
 
-def _dd_core(pr, *, th_s0, th_a, eta0, t_max):
-    """The subgradient loop over a batch of merges.
+def _adam_bias_corrections(t_max):
+    """1 - b ** (t + 1) for t < t_max, b = 0.9 and 0.999, in float32.
+
+    numpy's float32 power (the C library's powf); XLA's own `power`, which
+    `dafs_tpu` runs for `b ** tf`, differs from it in the last bit for a few
+    t (tests/test_torch_options.py).  A table read by each merge's own t
+    gives the card and the CPU the same values."""
+    tf = np.arange(1, max(t_max, 1) + 1, dtype=np.float32)
+    one = np.float32(1.0)
+    return (one - np.power(np.float32(0.9), tf), one - np.power(np.float32(0.999), tf))
+
+
+def _dd_core(pr, *, th_s0, th_a, eta0, t_max, update_rule="subgradient"):
+    """The DD loop over a batch of merges.
 
     pr: dict of batched device tensors (leading dim B) from
-    `_prep_dd_problem`.  Returns (s, t, violated, x, y, z) per merge.
+    `_prep_dd_problem`.  update_rule: "subgradient" (a step width eta per
+    merge that shrinks when the bound does not improve), or the per-entry
+    "adagrad" or "adam" steps of `dafs_tpu/dd.py:162-188`, whose state
+    starts at zero and moves only at the entries a step updates.  Returns
+    (s, t, violated, x, y, z) per merge.
     """
+    if update_rule not in ("subgradient", "adagrad", "adam"):
+        raise ValueError(f"unknown DD update rule {update_rule!r}")
     p_x, p_y, p_z = pr["p_x"], pr["p_y"], pr["p_z"]
     B, P1, _ = p_x.shape
     P2 = p_y.shape[1]
@@ -168,6 +188,17 @@ def _dd_core(pr, *, th_s0, th_a, eta0, t_max):
     # one padded buffer for the x and y structure problems of every merge;
     # cells past a problem's true length are never read by the decoder
     sm_xy = torch.zeros((2 * B, P, P), dtype=f32, device=dev)
+    # optimiser state per merge: g2 of x, y, z (adagrad), or m of x, y, z
+    # then v of x, y, z (adam)
+    n_opt = {"subgradient": 0, "adagrad": 3, "adam": 6}[update_rule]
+    opt = [torch.zeros_like(q) for q in (q_x, q_y, q_z) * 2][:n_opt]
+    if update_rule == "adagrad":
+        eps = torch.tensor(1e-6, dtype=f32, device=dev)
+    elif update_rule == "adam":
+        eps = torch.tensor(1e-8, dtype=f32, device=dev)
+        b1 = torch.tensor(0.9, dtype=f32, device=dev)
+        b2 = torch.tensor(0.999, dtype=f32, device=dev)
+        bc1_tab, bc2_tab = (torch.from_numpy(b).to(dev) for b in _adam_bias_corrections(t_max))
 
     def one_hot(v, n):
         return ((v[:, :, None] == torch.arange(n, device=dev)) & (v >= 0)[:, :, None]).to(torch.int32)
@@ -214,21 +245,41 @@ def _dd_core(pr, *, th_s0, th_a, eta0, t_max):
         dz = (Z - t_z).to(f32)
         mz = (Z > 0) | in_cz
         upd_z = mz & (dz != 0.0)
-        q_x_new = torch.where(upd_x, q_x - eta3 * dx, q_x)
-        q_y_new = torch.where(upd_y, q_y - eta3 * dy, q_y)
+        # per-entry step (src/dafs.cpp:984-1004), in `dafs_tpu`'s order
+        ds, upds = (dx, dy, dz), (upd_x, upd_y, upd_z)
+        if update_rule == "adagrad":
+            opt_new = [torch.where(u, g2 + d * d, g2) for g2, d, u in zip(opt, ds, upds)]
+            steps = [(eta0 * d) / torch.sqrt(g2 + eps) for g2, d in zip(opt_new, ds)]
+        elif update_rule == "adam":
+            bc1 = bc1_tab[t][:, None, None]
+            bc2 = bc2_tab[t][:, None, None]
+            ms = [torch.where(u, b1 * m + (1.0 - b1) * d, m) for m, d, u in zip(opt[:3], ds, upds)]
+            vs = [torch.where(u, b2 * v + ((1.0 - b2) * d) * d, v)
+                  for v, d, u in zip(opt[3:], ds, upds)]
+            steps = [(eta0 * (m / bc1)) / (torch.sqrt(v / bc2) + eps)
+                     for m, v in zip(ms, vs)]
+            opt_new = ms + vs
+        else:
+            steps = [eta3 * d for d in ds]
+            opt_new = []
+        q_x_new = torch.where(upd_x, q_x - steps[0], q_x)
+        q_y_new = torch.where(upd_y, q_y - steps[1], q_y)
         q_z_new = torch.where(
-            mz, torch.clamp(q_z - torch.where(upd_z, eta3 * dz, 0.0), min=0.0), q_z
+            mz, torch.clamp(q_z - torch.where(upd_z, steps[2], 0.0), min=0.0), q_z
         )
         viol_z = ((Z > 0) & (t_z > 1)) | ((Z == 0) & in_cz & (t_z > 0))
         violated_new = upd_x.sum((1, 2)) + upd_y.sum((1, 2)) + viol_z.sum((1, 2))
         done_new = violated_new == 0
 
-        # step width (src/dafs.cpp:1283-1288); on break the reference skips
-        # the eta update AND keeps the previous s_prev
-        improve = ((s > s_prev) | (t == 0)) & ~done_new
-        c_new = c + torch.clamp(n_cbp4 - violated_new.to(f32), min=0.0) / n_cbp4
-        c_new = torch.where(improve, c_new, c)
-        eta_new = torch.where(improve, eta0 / (1.0 + c_new), eta)
+        # step width (src/dafs.cpp:1283-1288, subgradient only); on break the
+        # reference skips the eta update AND keeps the previous s_prev
+        if update_rule == "subgradient":
+            improve = ((s > s_prev) | (t == 0)) & ~done_new
+            c_new = c + torch.clamp(n_cbp4 - violated_new.to(f32), min=0.0) / n_cbp4
+            c_new = torch.where(improve, c_new, c)
+            eta_new = torch.where(improve, eta0 / (1.0 + c_new), eta)
+        else:
+            c_new, eta_new = c, eta
         s_new = torch.where(done_new, s_prev, s)
 
         # freeze merges that finished in an earlier iteration
@@ -236,6 +287,7 @@ def _dd_core(pr, *, th_s0, th_a, eta0, t_max):
         q_x = torch.where(r3, q_x_new, q_x)
         q_y = torch.where(r3, q_y_new, q_y)
         q_z = torch.where(r3, q_z_new, q_z)
+        opt = [torch.where(r3, o_new, o) for o_new, o in zip(opt_new, opt)]
         eta = torch.where(run, eta_new, eta)
         c = torch.where(run, c_new, c)
         s_prev = torch.where(run, s_new, s_prev)
@@ -249,30 +301,29 @@ def _dd_core(pr, *, th_s0, th_a, eta0, t_max):
 
 
 def solve_by_dd_batch(problems, *, w, th_s, th_a, eta0, t_max, device,
-                      update_rule="subgradient"):
+                      update_rule="subgradient", stats=None):
     """Solve a batch of independent merges together on `device`.
 
     problems: list of (p_x, p_y, p_z, n1, n2) numpy problems.  All are padded
     to the batch's common (P1, P2, U) buckets.  Returns a list of
-    (s, x, y, z), x/y/z int64 vectors with -1 = unpaired/unaligned.
+    (s, x, y, z), x/y/z int64 vectors with -1 = unpaired/unaligned; appends
+    each merge's (iterations, violations at exit) to the list `stats` when
+    one is given.
     """
-    if update_rule != "subgradient":
-        raise NotImplementedError(
-            f"--dd-update {update_rule}: the adagrad and adam DD update rules "
-            "are not ported yet (ROADMAP.md, port queue)"
-        )
     s, t, violated, x, y, z = (
         v.cpu().numpy()
         for v in _dd_core(
             prep_batch(problems, w=w, th_s=th_s, th_a=th_a, device=device),
             th_s0=float(np.float32(th_s[0])), th_a=float(np.float32(th_a)),
-            eta0=float(np.float32(eta0)), t_max=t_max,
+            eta0=float(np.float32(eta0)), t_max=t_max, update_rule=update_rule,
         )
     )
     out = []
     for b, (_, _, p_z, _, _) in enumerate(problems):
         L1, L2 = p_z.shape
         logger.info("Step: %d, Violated: %d", int(t[b]), int(violated[b]))
+        if stats is not None:
+            stats.append((int(t[b]), int(violated[b])))
         out.append((
             float(s[b]),
             x[b, :L1].astype(np.int64),
@@ -306,7 +357,7 @@ def prep_batch(problems, *, w, th_s, th_a, device):
 
 
 def solve_by_dd(p_x, p_y, p_z, n1, n2, *, w, th_s, th_a, eta0, t_max, device,
-                update_rule="subgradient"):
+                update_rule="subgradient", stats=None):
     """Solve one merge's joint align+fold problem by dual decomposition.
 
     Args:
@@ -321,7 +372,7 @@ def solve_by_dd(p_x, p_y, p_z, n1, n2, *, w, th_s, th_a, eta0, t_max, device,
     """
     return solve_by_dd_batch(
         [(p_x, p_y, p_z, n1, n2)], w=w, th_s=th_s, th_a=th_a, eta0=eta0,
-        t_max=t_max, device=device, update_rule=update_rule,
+        t_max=t_max, device=device, update_rule=update_rule, stats=stats,
     )[0]
 
 

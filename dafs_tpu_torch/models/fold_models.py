@@ -7,7 +7,8 @@ thresholded at `th` (strictly greater kept), computed on `device`.
 Constrained runs re-fold under a structure constraint string for the
 bp-update mechanism (src/dafs.cpp:609-711): '(' ')' a forced pair, '?' free;
 '.' is forced unpaired for CONTRAfold, while McCaskill reads it as Vienna
-does, as free ('x' is its unpaired mark).
+does, as free ('x' is its unpaired mark).  `AUXFold` (`--fold-aux`) reads
+the matrices from a file instead, and cannot fold again.
 """
 
 from __future__ import annotations
@@ -67,6 +68,36 @@ class CONTRAfold(FoldModel):
 
         return contrafold.batch_bp_posteriors(
             seqs, self.th if th is None else th, device, constraints=constraints)
+
+
+class AUXFold(FoldModel):
+    """Precomputed base-pair posteriors from the reference's text format
+    (`> x` header, then 1-based `i j:p ...` rows; src/fold.cpp:230-278).
+    It holds no model to fold with: a constrained run (bp-update) reaches
+    the base class and raises NotImplementedError, as in the JAX package."""
+
+    def __init__(self, path: str, th: float):
+        super().__init__(th)
+        self.path = path
+
+    def all_seqs(self, fa: list[Fasta], device, posts=None) -> np.ndarray:
+        N = len(fa)
+        L = max(len(f) for f in fa)
+        bp = np.zeros((N, L, L), dtype=np.float32)
+        x = None
+        with open(self.path) as fh:
+            for line in fh:
+                parts = line.split()
+                if not parts:
+                    continue
+                if parts[0] == ">":
+                    x = int(parts[1]) - 1
+                else:
+                    i = int(parts[0]) - 1
+                    for tok in parts[1:]:
+                        j, p = tok.split(":")
+                        bp[x, i, int(j) - 1] = float(p)
+        return bp
 
 
 def by_name(name: str, th: float) -> FoldModel:

@@ -165,8 +165,23 @@ BL_STAR_PATH = os.path.join(
 # Turner 2004 base tables for the "Vienna" (non-BL) model.  For round 1 the
 # BL* set (the DAFS default) is the priority; the "Vienna" variant reuses the
 # BL* tables where Turner-2004 values have not been transcribed yet and is
-# marked experimental in the CLI docs.  The JAX package's parameter-override
-# seam (`-P` parameter files) is not part of the port yet.
+# marked experimental in the CLI docs.
+
+# Overrides applied on top of the assembled parameter set (energies in dcal):
+# `-P FILE` installs the tables of a ViennaRNA parameter file here
+# (`ops/param_file.py`).  A process-wide setting, as in the JAX package.
+PARAM_OVERRIDES: dict = {}
+
+
+def set_param_overrides(over: dict) -> None:
+    """Replace PARAM_OVERRIDES and clear every table memo built from the
+    parameters (McCaskill's and the consensus's)."""
+    global PARAM_OVERRIDES
+    PARAM_OVERRIDES = dict(over)
+    from dafs_tpu_torch.ops import alifold, mccaskill
+
+    mccaskill._FAST_TABLES.clear()
+    alifold._TABLES.clear()
 
 
 def params(bl: bool = True) -> dict:
@@ -201,6 +216,7 @@ def params(bl: bool = True) -> dict:
         "triloops": TRILOOPS_T04,
         "hexaloops": HEXALOOPS_T04,
     }
+    p.update(PARAM_OVERRIDES)
     return p
 
 

@@ -3,25 +3,27 @@
 
 Host Python orchestrates (guide tree, projections, output); the numerics
 (posterior models, PCT products, similarity DP, RNAalifold consensus, the
-DD subgradient loop, final structure decode) run on `device`.
+DD loop, final structure decode) run on `device`.
 
-The ported slice: `Dafs(align_model, fold_model, Options(...),
-alifold_model=Alifold(0.0, bl=...))` with the ProbCons or CONTRAlign
-alignment model, the McCaskill (BL* or Vienna) or CONTRAfold fold model,
-bp-update (`use_bp_update`, `use_bp_update1`), and the host merge solvers
-(`fold_decoder="IPknot"`, `verbose=2`, `dd_host`, `t_max=0`), equals the
-JAX package's `Dafs` of the same arguments.  The consensus is mixed into
-every merge when `Options.use_alifold` is set, and into the final structure
-whenever an `alifold_model` is given (use_alifold1_ is always true in the
-reference).
+`Dafs(align_model, fold_model, Options(...), alifold_model=Alifold(0.0,
+bl=...))` equals the JAX package's `Dafs` of the same arguments for every
+option of one device: the ProbCons, CONTRAlign or aux-file alignment model,
+the McCaskill (BL* or Vienna), CONTRAfold or aux-file fold model, bp-update
+(`use_bp_update`, `use_bp_update1`), the host merge solvers
+(`fold_decoder="IPknot"`, `verbose=2`, `dd_host`, `t_max=0`), the DD update
+rules (`dd_update`), four-way PCT (`w_pct_f`), refinement (`n_refinement`)
+and the aux dumps (`save_align_aux`, `save_fold_aux`).  The consensus is
+mixed into every merge when `Options.use_alifold` is set, and into the final
+structure whenever an `alifold_model` is given (use_alifold1_ is always true
+in the reference).
 
 The merges of the device DD are solved one guide-tree layer at a time
 (`dd.solve_by_dd_batch`).  The host solvers take the reference's serial
 recursion instead, one merge at a time in its order (left subtree, right
 subtree, then the merge): `dd.solve_by_ip` under `t_max=0`, else
 `dd.solve_by_dd_ipknot` with the IPknot ILPs (IPknot) or the port's
-Nussinov decoder (`verbose >= 2`, `dd_host`).  Options outside the slice
-raise `NotImplementedError` naming the ROADMAP item that brings them.
+Nussinov decoder (`verbose >= 2`, `dd_host`).  Refinement merges one random
+bipartition of the finished alignment at a time with the same solver.
 """
 
 from __future__ import annotations
@@ -40,18 +42,10 @@ from dafs_tpu_torch.fasta import Fasta
 from dafs_tpu_torch.models.fold_models import RNAfold
 from dafs_tpu_torch.ops import nussinov
 from dafs_tpu_torch.typedefs import CUTOFF, AlnRow, gapped_seq
+from dafs_tpu_torch.utils.crand import GlibcRand
 from dafs_tpu_torch.utils.log import logger
 
 F = np.float32
-
-_QUEUE = "is not ported yet (ROADMAP.md, port queue: {})"
-NOT_PORTED = {
-    "n_refinement": "-r (iterative refinement) " + _QUEUE.format("refinement"),
-    "w_pct_f": "-f (four-way PCT) " + _QUEUE.format("four-way PCT"),
-    "aux": "reading or writing aux files " + _QUEUE.format("aux files"),
-    "dd_update": "the adagrad and adam DD update rules " + _QUEUE.format("adagrad/adam"),
-    "param_file": "-P (parameter files) " + _QUEUE.format("-P"),
-}
 
 
 @dataclasses.dataclass
@@ -71,28 +65,15 @@ class Options:
     use_bp_update1: bool = False
     fold_decoder: str = "Nussinov"  # or "IPknot"
     verbose: int = 0
-    save_align_aux: str | None = None
-    save_fold_aux: str | None = None
-    dd_update: str = "subgradient"
+    save_align_aux: str | None = None  # dump mp (the reference's text format)
+    save_fold_aux: str | None = None   # dump bp
+    dd_update: str = "subgradient"  # or "adagrad" / "adam" (src/dafs.cpp:67-69)
     dd_host: bool = False  # the host-loop DD with the port's Nussinov decoder
-
-    def check_slice(self) -> None:
-        """Raise NotImplementedError for any option outside the slice."""
-        bad = {
-            "n_refinement": self.n_refinement > 0,
-            "w_pct_f": self.w_pct_f != 0.0,
-            "aux": bool(self.save_align_aux or self.save_fold_aux),
-            "dd_update": self.dd_update != "subgradient",
-        }
-        for key, on in bad.items():
-            if on:
-                raise NotImplementedError(NOT_PORTED[key])
 
 
 class Dafs:
     def __init__(self, align_model, fold_model, opts: Options, alifold_model=None,
                  device="cuda"):
-        opts.check_slice()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device is available")
@@ -102,9 +83,16 @@ class Dafs:
         self.o = opts
         if self.o.th_s1 is None:
             self.o.th_s1 = self.o.th_s
-        # (iterations, violations at exit) of each merge the host DD loop
-        # solved, in solve order
+        # (iterations, violations at exit) of each merge in solve order, one
+        # list for the host DD loop and one for the device DD
         self.host_dd: list[tuple[int, int]] = []
+        self.device_dd: list[tuple[int, int]] = []
+        # per refinement: the two groups of sequence ids, the score before
+        # it and the merge's score
+        self.refinements: list[dict] = []
+        # DAFS::refine's bare rand(): one glibc seed-1 stream for the life of
+        # the object, as in the JAX package
+        self._rand = GlibcRand()
 
     # -- decoders ---------------------------------------------------------
 
@@ -240,10 +228,14 @@ class Dafs:
         ss = np.where(xx == yy, xx, -1)
         return ss, aln
 
-    def _host_solver(self, aln1, aln2, trace):
-        """The host solver of one merge (src/dafs.cpp:110-115, 875-894,
-        1091-1092), as the JAX package dispatches it.  The DD loop appends
-        each iteration's (t, s, violated, eta) to `trace`."""
+    def _solver(self, aln1, aln2, trace):
+        """The solver of one merge (src/dafs.cpp:110-115, 875-894,
+        1091-1092), as the JAX package dispatches it.  The host DD loop
+        appends each iteration's (t, s, violated, eta) to `trace`; the host
+        solvers take no update rule, as in the JAX package."""
+        if self._can_batch_merges():
+            return functools.partial(dd.solve_by_dd, device=self.device,
+                                     update_rule=self.o.dd_update, stats=self.device_dd)
         if self.o.t_max == 0:
             # -m 0: the exact joint ILP
             return dd.solve_by_ip
@@ -257,13 +249,14 @@ class Dafs:
             structure_decoder="ipknot" if self.o.fold_decoder == "IPknot" else "nussinov")
 
     def _align_alignments(self, aln1, aln2, phases: dict):
-        """One progressive merge by a host solver (src/dafs.cpp:913-981).
-        Returns (s, ss, aln); adds its seconds to `phases`."""
+        """One merge (src/dafs.cpp:913-981): of the serial recursion of the
+        host solvers, or of refinement.  Returns (s, ss, aln); adds its
+        seconds to `phases`."""
         t0 = time.perf_counter()
         p_x, p_y, p_z = self._merge_inputs(aln1, aln2)
         t1 = time.perf_counter()
         trace = []
-        s, x, y, z = self._host_solver(aln1, aln2, trace)(
+        s, x, y, z = self._solver(aln1, aln2, trace)(
             p_x, p_y, p_z, len(aln1), len(aln2),
             w=self.o.w, th_s=list(self.o.th_s), th_a=self.o.th_a,
             eta0=self.o.eta0, t_max=self.o.t_max,
@@ -342,6 +335,7 @@ class Dafs:
                 probs,
                 w=self.o.w, th_s=list(self.o.th_s), th_a=self.o.th_a,
                 eta0=self.o.eta0, t_max=self.o.t_max, device=self.device,
+                update_rule=self.o.dd_update, stats=self.device_dd,
             )
             t2 = time.perf_counter()
             for n, (s, x, y, z), (aln1, aln2) in zip(layer, sols, alns):
@@ -355,6 +349,52 @@ class Dafs:
                 len(layer), t1 - t0, t2 - t1, t3 - t2,
             )
         return state[node]
+
+    def _refine(self, aln, phases: dict):
+        """Random bipartition refinement (src/dafs.cpp:1539-1576): rand() % 2
+        puts each row in one of two groups (until both are non-empty), the
+        columns that are all gaps in a group are dropped, and the two groups
+        are merged again.  Returns the merge's (s, ss, aln)."""
+        while True:
+            group = [[], []]
+            for i in range(len(aln)):
+                group[self._rand.rand() % 2].append(i)
+            if group[0] and group[1]:
+                break
+        self.refinements.append(dict(groups=[[aln[i].seq_id for i in g] for g in group]))
+        parts = []
+        for g in group:
+            rows = [aln[i] for i in g]
+            keep = np.stack([r.mask for r in rows]).any(axis=0)
+            parts.append([AlnRow(r.seq_id, r.mask[keep]) for r in rows])
+        return self._align_alignments(parts[0], parts[1], phases)
+
+    def _save_aux(self, lens):
+        """The aux dumps (src/align.cpp:206-228, src/fold.cpp:230-259):
+        1-based `> x` / `> x y` headers, then one `i j:p ...` row per
+        position, each p as `%.9g` (exact for a float32)."""
+        N = len(lens)
+        if self.o.save_fold_aux:
+            with open(self.o.save_fold_aux, "w") as fh:
+                for x in range(N):
+                    fh.write(f"> {x+1}\n")
+                    for i in range(lens[x]):
+                        js = np.nonzero(self.bp[x, i, : lens[x]])[0]
+                        fh.write(str(i + 1))
+                        for j in js:
+                            fh.write(f" {j+1}:{self.bp[x, i, j]:.9g}")
+                        fh.write("\n")
+        if self.o.save_align_aux:
+            with open(self.o.save_align_aux, "w") as fh:
+                for x in range(N - 1):
+                    for y in range(x + 1, N):
+                        fh.write(f"> {x+1} {y+1}\n")
+                        for i in range(lens[x]):
+                            ks = np.nonzero(self.mp[x, y, i, : lens[y]])[0]
+                            fh.write(str(i + 1))
+                            for k in ks:
+                                fh.write(f" {k+1}:{self.mp[x, y, i, k]:.9g}")
+                            fh.write("\n")
 
     # -- main -------------------------------------------------------------
 
@@ -370,6 +410,7 @@ class Dafs:
             t0 = t1
 
         self.fa = fa
+        self.host_dd, self.device_dd, self.refinements = [], [], []
         lens = [len(f) for f in fa]
         out = io.StringIO()
 
@@ -389,6 +430,14 @@ class Dafs:
         _phase("fold")
         self.mp = self.a_model.all_pairs(fa, self.device)
         _phase("align")
+        if self.o.save_fold_aux or self.o.save_align_aux:
+            self._save_aux(lens)
+            _phase("save aux")
+        if self.o.w_pct_f != 0.0:
+            self.mp = consistency.relax_fourway_consistency(
+                self.mp, self.bp, lens, self.o.w_pct_f, self.device
+            )
+            _phase("four-way PCT")
         sim = consistency.similarity_matrix(self.mp, lens, self.device)
         _phase("similarity")
         if self.o.w_pct_s != 0.0:
@@ -406,6 +455,14 @@ class Dafs:
 
         s, ss, aln = self._align(len(self.tree) - 1, phases)
         t0 = time.perf_counter()
+        # each refinement merge's own seconds stay out of the merge phases
+        for _ in range(self.o.n_refinement):
+            s_new, ss_new, aln_new = self._refine(aln, {})
+            self.refinements[-1].update(s=float(s), s_new=float(s_new))
+            if s_new > s:
+                s, ss, aln = s_new, ss_new, aln_new
+        if self.o.n_refinement:
+            _phase("refinement")
 
         # final common structure (src/dafs.cpp:1857-1873); use_alifold1_ is
         # always true in the reference
@@ -435,5 +492,7 @@ class Dafs:
             similarity=sim,
             consensus_calls=self.alifold.calls[first_call:] if self.alifold is not None else [],
             host_dd=list(self.host_dd),
+            device_dd=list(self.device_dd),
+            refinements=list(self.refinements),
         )
         return out.getvalue()

@@ -357,3 +357,52 @@ def test_rf00017_frozen_replay(dev):
     import chip_smoke
 
     chip_smoke.replay_rf00017(dev)
+
+
+@pytest.mark.parametrize("rule", ["subgradient", "adagrad", "adam"])
+def test_dd_update_rules_match_cpu(rule, dev):
+    """The batched DD under each update rule on the card (K3 and K4 every
+    iteration) against its CPU run: the same iterations, violations and
+    (x, y, z), and s within four float32 ulps.  The steps are separate IEEE
+    float32 ops on both, sqrt and division rounded; s adds the active
+    candidates' multipliers in one `torch.sum`, which the card reduces in
+    another order than the CPU (one ulp apart under adam, measured)."""
+    from dafs_tpu_torch import dd
+    from tests.merge_problems import KW, PROBLEMS, _problem
+
+    probs = [(*_problem(*p[:3]), *p[3:]) for p in PROBLEMS]
+    runs = []
+    for device in (dev, "cpu"):
+        stats = []
+        out = dd.solve_by_dd_batch(probs, device=device, t_max=200, update_rule=rule,
+                                   stats=stats, **KW)
+        runs.append((out, stats))
+    (got, got_st), (want, want_st) = runs
+    assert got_st == want_st
+    for g, w in zip(got, want):
+        assert abs(g[0] - w[0]) <= 4 * 2.0 ** -23 * abs(w[0])
+        for u, v in zip(g[1:], w[1:]):
+            np.testing.assert_array_equal(u, v)
+
+
+def test_fourway_matches_cpu(dev):
+    """Four-way PCT on the card (cuBLAS) against its CPU run, 1e-6."""
+    from dafs_tpu_torch import consistency
+    from tests.merge_problems import _helix_probs
+
+    rng = np.random.default_rng(7)
+    lens = [70, 75, 82, 64]
+    L, N = max(lens), len(lens)
+    bp = np.zeros((N, L, L), np.float32)
+    mp = np.zeros((N, N, L, L), np.float32)
+    for x, lx in enumerate(lens):
+        bp[x, :lx, :lx] = _helix_probs(rng, lx, 5)
+        mp[x, x][np.arange(lx), np.arange(lx)] = 1.0
+        for y in range(x + 1, N):
+            ly = lens[y]
+            band = np.abs(np.arange(lx)[:, None] * ly / lx - np.arange(ly)[None, :]) < 3
+            m = np.float32(band * rng.random((lx, ly)))
+            mp[x, y, :lx, :ly], mp[y, x, :ly, :lx] = m, m.T
+    got = consistency.relax_fourway_consistency(mp, bp, lens, 0.5, dev)
+    want = consistency.relax_fourway_consistency(mp, bp, lens, 0.5, "cpu")
+    assert float(np.abs(got.astype(np.float64) - want).max()) <= 1e-6

@@ -92,7 +92,14 @@ def test_frozen_merges_do_not_move():
             np.testing.assert_array_equal(u, v)
 
 
-def test_other_update_rules_raise():
-    with pytest.raises(NotImplementedError, match="adagrad"):
-        t_dd.solve_by_dd_batch(_problems(1), device="cpu", update_rule="adagrad", **KW)
+def test_other_update_rules_run():
+    """adagrad and adam solve every merge of a batch; the iterations and
+    violations at exit are reported per merge (their results against
+    `dafs_tpu` are held in tests/test_torch_options.py)."""
+    for rule in ("adagrad", "adam"):
+        stats = []
+        out = t_dd.solve_by_dd_batch(_problems(1), device="cpu", update_rule=rule,
+                                     stats=stats, **KW)
+        assert len(out) == len(stats) == 3
+        assert all(0 < t < KW["t_max"] and v == 0 for t, v in stats)
     assert torch.get_default_dtype() == torch.float32

@@ -4,8 +4,10 @@ independence from JAX.
 The references are the JAX package's default path, `dafs_tpu.pipeline.Dafs(
 ProbCons(0.01), RNAfold(True, CUTOFF), Options(), alifold_model=Alifold(0.0,
 bl=True))`, the same without any consensus mix (`Options(use_alifold=False),
-alifold_model=None`), and the JAX CLI's `--no-alifold` and model and
-bp-update options (`CLI_OPTIONS`).  They run in one
+alifold_model=None`), the JAX CLI's `--no-alifold` and model and
+bp-update options (`CLI_OPTIONS`), and its refinement, four-way PCT, DD
+update and parameter-file options on every family (`FAMILY_OPTIONS`).
+They run in one
 subprocess with XLA's CPU code generation capped below FMA
 (`--xla_cpu_max_isa=AVX`): by default XLA on the CPU contracts
 multiply-adds into fused multiply-adds, which the port (like the TPU) never
@@ -16,6 +18,8 @@ JAX package keeps its consensus pf-scale warm start in a module global, so
 the reference clears it before each run, as a fresh process would start.
 """
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -63,6 +67,7 @@ def _seeded_family(seed=1, n=5):
 
 
 FAMILIES = {"three_hairpins": TINY, "seeded_5x52": _seeded_family()}
+TINY_RECORDS = [Fasta(n, s) for n, s in TINY]
 
 _JAX_REFERENCE = """
 import contextlib, io, json, sys
@@ -83,12 +88,21 @@ for name, recs in args["families"].items():
             d.run([Fasta(n, s) for n, s in recs])
         out[kind][name] = d.result
 out["cli"] = {}
-for flags in [["--no-alifold"]] + args["cli_options"]:
+for flags in args["cli_options"]:
     alifold._SC_CACHE.clear()
     buf = io.StringIO()
     with force_single_device(), contextlib.redirect_stdout(buf):
         cli.main([*flags, args["tiny_fa"]])
     out["cli"][" ".join(flags)] = buf.getvalue()
+# -P last: its override is a process global
+out["family_cli"] = {}
+for flags in args["family_options"]:
+    for name, path in args["family_fa"].items():
+        alifold._SC_CACHE.clear()
+        buf = io.StringIO()
+        with force_single_device(), contextlib.redirect_stdout(buf):
+            cli.main([*flags, path])
+        out["family_cli"][" ".join(flags) + " " + name] = buf.getvalue()
 print(json.dumps(out))
 """
 
@@ -97,18 +111,50 @@ print(json.dumps(out))
 CLI_OPTIONS = [["-a", "CONTRAlign"], ["-s", "CONTRAfold"], ["-s", "Vienna"],
                ["--bp-update"], ["--bp-update1"]]
 
+# options that run on every family of FAMILIES through both CLIs; `-P` comes
+# last, since its override stays for the rest of a process
+PAR_FILE = os.path.join(ROOT, "tests", "data", "ml_ninio.par")
+FAMILY_OPTIONS = [["-r", "2"], ["-r", "1", "-m", "0"], ["-f", "0.5"],
+                  ["--dd-update", "adagrad"], ["--dd-update", "adam"], ["-P", PAR_FILE]]
+
 
 @pytest.fixture(scope="module")
-def jax_reference(tmp_path_factory):
+def family_fa(tmp_path_factory):
+    """One FASTA file per family of FAMILIES."""
+    d = tmp_path_factory.mktemp("families")
+    out = {}
+    for name, recs in FAMILIES.items():
+        out[name] = str(d / f"{name}.fa")
+        with open(out[name], "w") as fh:
+            fh.write("".join(f">{n}\n{s}\n" for n, s in recs))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_reference(tmp_path_factory, family_fa):
     tiny = tmp_path_factory.mktemp("fa") / "tiny.fa"
     tiny.write_text("".join(f">{n}\n{s}\n" for n, s in TINY))
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX")
-    proc = subprocess.run(
-        [sys.executable, "-c", _JAX_REFERENCE],
-        input=json.dumps(dict(families=FAMILIES, tiny_fa=str(tiny), cli_options=CLI_OPTIONS)),
-        capture_output=True, text=True, cwd=ROOT, env=env, timeout=900, check=True,
-    )
-    return json.loads(proc.stdout.strip().splitlines()[-1]), str(tiny)
+    # two processes side by side: the families and the tiny family's
+    # options, and FAMILY_OPTIONS
+    jobs = [dict(families=FAMILIES, cli_options=[["--no-alifold"]] + CLI_OPTIONS,
+                 family_options=[]),
+            dict(families={}, cli_options=[], family_options=FAMILY_OPTIONS)]
+    procs = []
+    for k, job in enumerate(jobs):
+        args = tiny.parent / f"job{k}.json"
+        args.write_text(json.dumps(dict(job, tiny_fa=str(tiny), family_fa=family_fa)))
+        with open(args) as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _JAX_REFERENCE], stdin=fh, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env))
+    out = {}
+    for proc in procs:
+        stdout, stderr = proc.communicate(timeout=900)
+        assert proc.returncode == 0, stderr
+        for key, runs in json.loads(stdout.strip().splitlines()[-1]).items():
+            out.setdefault(key, {}).update(runs)
+    return out, str(tiny)
 
 
 def _assert_same_result(got, want):
@@ -166,6 +212,24 @@ def test_options_match_jax_cli(flags, kw, jax_reference, capsys):
     assert got == want["cli"][" ".join(flags)]
 
 
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("flags", FAMILY_OPTIONS,
+                         ids=lambda f: " ".join(os.path.basename(a) for a in f))
+def test_family_options_match_jax_cli(flags, family, jax_reference, family_fa, capsys):
+    """Refinement (with the device DD and with the exact ILP), four-way PCT,
+    the adagrad and adam DD updates and a parameter file print the JAX
+    CLI's bytes on each family."""
+    from dafs_tpu_torch.ops import energy_params
+
+    want, _ = jax_reference
+    try:
+        assert cli.main([*flags, "--device", "cpu", family_fa[family]]) == 0
+    finally:
+        energy_params.set_param_overrides({})
+    got = capsys.readouterr().out
+    assert got == want["family_cli"][" ".join(flags) + " " + family]
+
+
 def test_api_vienna_equals_cli(tiny_fa, capsys):
     """`fold_model="Vienna"` folds and forms the consensus with Vienna's
     parameters (bl=False), as the CLI's `-s Vienna` does."""
@@ -203,11 +267,13 @@ def test_fold_model_without_bl_runs():
     dict(use_bp_update=True, use_bp_update1=True),
     dict(fold_decoder="IPknot", th_s=(0.2, 1 / 9.0), th_s1=(1 / 3.0, 0.2), use_bp_update1=True),
     dict(t_max=0),
+    dict(n_refinement=1, w_pct_f=0.5, dd_update="adam", param_file=PAR_FILE),
 ])
 def test_port_runs_without_jax(kw):
     """The default path, path (a) (CONTRAlign, CONTRAfold), path (b)
-    (bp-update), `--ipknot` and `-m 0` with `jax` blocked: nothing of JAX or
-    `dafs_tpu` loads."""
+    (bp-update), `--ipknot`, `-m 0`, and refinement with four-way PCT, the
+    adam DD update and a parameter file, with `jax` blocked: nothing of JAX
+    or `dafs_tpu` loads."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -262,19 +328,50 @@ def test_cli_without_flags_runs(tiny_fa, capsys):
     assert out == str(dafs_tpu_torch.align_and_fold(tiny_fa, device="cpu"))
 
 
+@pytest.fixture(scope="module")
+def saved_aux(tmp_path_factory):
+    """The aux files of one `--save-align-aux --save-fold-aux` run of the
+    port's CLI on the tiny family."""
+    import contextlib
+    import io
+
+    d = tmp_path_factory.mktemp("aux")
+    fa = d / "tiny.fa"
+    fa.write_text("".join(f">{n}\n{s}\n" for n, s in TINY))
+    files = {"mp.txt": str(d / "mp.txt"), "bp.txt": str(d / "bp.txt")}
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["--save-align-aux", files["mp.txt"], "--save-fold-aux",
+                         files["bp.txt"], "--device", "cpu", str(fa)]) == 0
+    return files
+
+
 @pytest.mark.parametrize("argv", [
     ["-r", "1"],
     ["-f", "0.5"],
     ["--align-aux", "mp.txt"],
     ["--fold-aux", "bp.txt"],
     ["--save-align-aux", "mp.txt"],
-    ["-P", "rna_turner2004.par"],
+    ["-P", "ml_ninio.par"],
     ["--dd-update", "adam"],
     ["--dd-update", "adagrad"],
 ])
-def test_cli_options_outside_the_slice_raise(argv, tiny_fa):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main([*argv, "--device", "cpu", tiny_fa])
+def test_slice_options_run(argv, tiny_fa, saved_aux, tmp_path, capsys):
+    """The options that raised before they were ported run through the CLI
+    and print a valid output; the aux inputs read the files a `--save-*`
+    run wrote (their bytes against the JAX CLI are held in
+    tests/test_torch_options.py)."""
+    from dafs_tpu_torch.ops import energy_params
+
+    flag, name = argv
+    path = {"--align-aux": saved_aux.get(name), "--fold-aux": saved_aux.get(name),
+            "--save-align-aux": str(tmp_path / name), "-P": PAR_FILE}.get(flag, name)
+    try:
+        assert cli.main([flag, path, "--device", "cpu", tiny_fa]) == 0
+    finally:
+        energy_params.set_param_overrides({})
+    _assert_valid_output(capsys.readouterr().out)
+    if flag == "--save-align-aux":
+        assert open(path).read().startswith("> 1 2\n1 1:")
 
 
 @pytest.mark.parametrize("argv", [
@@ -293,10 +390,14 @@ def test_host_solver_options_run(argv, tiny_fa, capsys):
         "> a", "> b", "> c"]
 
 
-@pytest.mark.parametrize("kw", [dict(n_refinement=2), dict(dd_update="adam")])
-def test_api_options_outside_the_slice_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dafs_tpu_torch.align_and_fold([s for _, s in TINY], device="cpu", **kw)
+@pytest.mark.parametrize("kw,flags", [(dict(n_refinement=2), "-r 2"),
+                                      (dict(dd_update="adam"), "--dd-update adam")])
+def test_api_slice_options_run(kw, flags, jax_reference):
+    """Refinement and the adam DD update through the API print the JAX
+    CLI's bytes of the same options."""
+    got = dafs_tpu_torch.align_and_fold(TINY_RECORDS, device="cpu", **kw)
+    _assert_valid_output(str(got))
+    assert str(got) == jax_reference[0]["family_cli"][flags + " three_hairpins"]
 
 
 def test_api_use_alifold_true_equals_default():
