@@ -73,7 +73,7 @@
    last.  Every launch count in it was read after a run whose counts were
    set to 0 just before: `launches` from the default path's two runs (the
    slice phase, where the variants too are counted), `launches_by_path`
-   from each run of the paths, solvers and options phases, and for the
+   from each run of the paths, solvers, options and mesh phases, and for the
    variants also `launches_length_phase`.
 9. Options phase (after the solvers phase): `dafs_tpu`'s last single-card
    options on RF00005 through `align_and_fold` with the keywords the CLI
@@ -94,6 +94,21 @@
    and `SS_cons` and rows too where no merge stopped at the 600 cap.  Then
    `-f 0.5 -r 1` on RF00017, held to rows, balance and score.  Prints each
    run's wall, phase split, DD merges and launches.
+10. Mesh phase (last): multi-device execution (`dafs_tpu_torch.parallel`),
+   counts set to 0 before each run.  (m1) The 50-sequence family of
+   `bench.py` (from RF00005): fold, all-pairs (K1, K2 and the posterior
+   kernel on each shard), similarity, PCT bp, PCT mp and the guide tree on
+   a mesh of two shards of one card, each stage bit-equal to the
+   single-device run; prints each stage's seconds both ways, the launches
+   and the peak bytes per device.  (m2) `dryrun_multichip(2)`: three
+   configurations, each byte-equal to its single-device run.  (m3)
+   RF00005's default path on two shards: tree topology, `SS_cons` and rows
+   equal the TPU snapshot, the bytes the slice phase's.  (m4)
+   `python -m dafs_tpu_torch.parallel.multiproc --nprocs 2`: two
+   processes sharing the card under gloo, its three `bitwise_equal_*`
+   flags true.  (m5) With two or more cards, m1, m3 and m4 again across
+   all of them (m4 under NCCL, a card a rank); with one, a line that says
+   it did not run and why.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
 """
@@ -1367,6 +1382,185 @@ def options_phase(dev):
     return by_path
 
 
+# ------------------------------------------------------------------- mesh --
+# Multi-device execution: the fold, all-pairs and PCT stages sharded over a
+# work mesh (`dafs_tpu_torch.parallel.mesh`), on one card as two shards of
+# it, and across the cards where there are several.  Every sharded stage
+# must give the single-device stage's bits.
+
+
+def family50():
+    """The 50-sequence all-pairs family of `bench.py`, from RF00005."""
+    from dafs_tpu_torch.fasta import Fasta
+    from dafs_tpu_torch.parallel import dryrun
+
+    seqs = dryrun.mutated_family([f.seq for f in read_fasta("RF00005_0.fa")])
+    return [Fasta(f"fam{i}", s) for i, s in enumerate(seqs)]
+
+
+def family_stages(fa, dev, ctx):
+    """Runs the fold, all-pairs, similarity, PCT (base pairs, then matches)
+    and guide-tree stages of `Dafs.run` on `fa` under the mesh context
+    `ctx`, the launch counts set to 0 just before; returns (outputs,
+    seconds, launch counts, peak bytes per device)."""
+    import torch
+
+    from dafs_tpu_torch import consistency, guide_tree
+    from dafs_tpu_torch.models import align_models, fold_models
+    from dafs_tpu_torch.parallel import mesh
+    from dafs_tpu_torch.typedefs import CUTOFF
+
+    lens = [len(f.seq) for f in fa]
+    out, secs = {}, {}
+    with ctx:
+        devices = sorted(set(mesh.work_devices(dev)), key=str)
+        for d in devices:
+            torch.cuda.synchronize(d)  # the card's context exists before its counters reset
+            torch.cuda.reset_peak_memory_stats(d)
+        for k in all_kernels().values():
+            k.launches = 0
+
+        def stage(name, fn):
+            for d in devices:
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            out[name] = fn()
+            for d in devices:
+                torch.cuda.synchronize(d)
+            secs[name] = time.perf_counter() - t0
+            return out[name]
+
+        fold = fold_models.RNAfold(True, CUTOFF)
+        posts = stage("fold", lambda: fold.batch_bp_posteriors([f.seq for f in fa], dev, th=0.0))
+        bp = fold.all_seqs(fa, dev, posts)
+        mp = stage("all-pairs", lambda: align_models.ProbCons(0.01).all_pairs(fa, dev))
+        sim = stage("similarity", lambda: consistency.similarity_matrix(mp, lens, dev))
+        stage("PCT bp", lambda: consistency.relax_basepairing_probability(
+            bp, mp, sim, lens, 0.25, dev))
+        stage("PCT mp", lambda: consistency.relax_matching_probability(mp, sim, lens, 0.25, dev))
+        stage("guide tree", lambda: guide_tree.print_tree(
+            guide_tree.build_tree(sim), [f.name for f in fa]))
+        counts = {name: k.launches for name, k in all_kernels().items()}
+        peak = {str(d): torch.cuda.max_memory_allocated(d) for d in devices}
+    return out, secs, counts, peak
+
+
+def bits_equal(a, b) -> bool:
+    if isinstance(a, str):
+        return a == b
+    if isinstance(a, list):
+        return len(a) == len(b) and all(bits_equal(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.view(np.int32), b.view(np.int32))
+
+
+def family_on_mesh(label, dev, ctx, by_path):
+    """m1: family-50's stages on the mesh of `ctx` against one device."""
+    from dafs_tpu_torch.parallel import mesh
+
+    fa = family50()
+    want, secs1, _, peak1 = family_stages(fa, dev, mesh.force_single_device())
+    got, secs, counts, peak = family_stages(fa, dev, ctx)
+    for name, n in counts.items():
+        by_path[name][label] = n
+    print(f"{label}: {len(fa)} sequences, {len(fa) * (len(fa) - 1) // 2} pairs, lengths "
+          f"{min(len(f.seq) for f in fa)}-{max(len(f.seq) for f in fa)}", flush=True)
+    for name in want:
+        same = bits_equal(got[name], want[name])
+        print(f"{label} {name}: sharded {secs[name]:.4f}s, single device {secs1[name]:.4f}s, "
+              f"bit-equal {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{label}: stage {name} differs from the single-device run")
+    print(f"{label}: launch counts {counts}; peak bytes per device sharded {peak}, "
+          f"single device {peak1}", flush=True)
+    for name in PAIRHMM:
+        if counts[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched")
+
+
+def rf00005_on_mesh(label, dev, ctx, by_path):
+    """m3: RF00005's default path through `align_and_fold` on the mesh:
+    tree topology, SS_cons and rows equal the TPU snapshot, the bytes the
+    slice phase's."""
+    fa = read_fasta("RF00005_0.fa")
+    with ctx:
+        res, wall, counts = timed_run(fa, dev)
+    report_run(label, res, wall, counts, fa, by_path)
+    snap, snap_ss, snap_names, snap_rows = read_snapshot("rf00005_default_tpu.txt")
+    if (NUM.sub("#", res.tree) != NUM.sub("#", snap) or res.names != snap_names
+            or res.ss_cons != snap_ss or res.rows != snap_rows):
+        raise AssertionError(f"{label}: differs from the TPU snapshot:\n{res}")
+    if str(res) != SLICE_OUTPUT["RF00005_0.fa"]:
+        raise AssertionError(f"{label}: differs from the slice phase's single-device bytes")
+    print(f"{label}: equals the TPU snapshot (tree topology, SS_cons, rows) and the slice "
+          f"phase's bytes", flush=True)
+
+
+def multiproc_run(label, nprocs, one_card):
+    """m4: `parallel.multiproc` with `nprocs` processes on the visible
+    cards, or all on the first where `one_card`; all three bitwise_equal
+    flags must be true.  Returns its report."""
+    env = dict(os.environ)
+    if one_card:
+        first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+        env["CUDA_VISIBLE_DEVICES"] = first
+    proc = subprocess.run(
+        [sys.executable, "-m", "dafs_tpu_torch.parallel.multiproc", "--nprocs", str(nprocs),
+         "--device", "cuda", "--timeout", "240"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300, env=env)
+    lines = proc.stdout.strip().splitlines()
+    report = json.loads(lines[-1]) if lines else {}
+    print(f"{label}: {json.dumps(report)}", flush=True)
+    if proc.returncode != 0 or not report.get("ok") or not all(
+            report.get(k) for k in ("bitwise_equal_pairhmm", "bitwise_equal_pct_mp",
+                                    "bitwise_equal_pct_bp")):
+        raise AssertionError(f"{label}: failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+    return report
+
+
+def mesh_phase(dev):
+    """m1-m5; returns {kernel name: {run label: launches}}."""
+    import torch
+
+    from dafs_tpu_torch.parallel import dryrun, mesh
+
+    by_path = {name: {} for name in all_kernels()}
+    one_card = torch.device("cuda", 0)
+    family_on_mesh("(m1) family-50, 2 shards of one card", one_card, mesh.virtual_mesh(2),
+                   by_path)
+
+    for k in all_kernels().values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(2, one_card)
+    counts = {name: k.launches for name, k in all_kernels().items()}
+    for name, n in counts.items():
+        by_path[name]["(m2) dry run, 2 shards of one card"] = n
+    print(f"(m2) dryrun_multichip(2): {time.perf_counter() - t0:.3f}s for three "
+          f"configurations, each twice; launch counts {counts}", flush=True)
+
+    rf00005_on_mesh("(m3) RF00005, 2 shards of one card", one_card, mesh.virtual_mesh(2),
+                    by_path)
+    report = multiproc_run("(m4) multiproc, 2 processes sharing one card", 2, one_card=True)
+    if report.get("collectives") != "gloo":
+        raise AssertionError("(m4): two ranks on one card must use gloo")
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"(m5) cross-card form did not run: {cards} card visible (it needs two or more)",
+              flush=True)
+        return by_path
+    print(f"(m5) across {cards} cards: {[torch.cuda.get_device_name(k) for k in range(cards)]}",
+          flush=True)
+    family_on_mesh(f"(m5) family-50, {cards} cards", dev, mesh.virtual_mesh(cards), by_path)
+    rf00005_on_mesh(f"(m5) RF00005, {cards} cards", dev, mesh.virtual_mesh(cards), by_path)
+    report = multiproc_run(f"(m5) multiproc, {cards} processes, a card each", cards,
+                           one_card=False)
+    if report.get("collectives") != "nccl":
+        raise AssertionError("(m5): ranks with cards of their own must use NCCL")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -1396,6 +1590,8 @@ def main() -> int:
     for name, runs in run("solvers", solvers_phase).items():
         by_path[name].update(runs)
     for name, runs in run("options", options_phase).items():
+        by_path[name].update(runs)
+    for name, runs in run("mesh", mesh_phase).items():
         by_path[name].update(runs)
     for name, row in rows.items():
         row["launches"] = counts[name]

@@ -106,7 +106,9 @@ def align_and_fold(
         path.
       names: optional names (defaults to seq1..seqN for raw strings).
       device: torch device; "cuda" (the default) raises when no card is
-        present.
+        present.  With several cards visible, "cuda" shards the fold,
+        all-pairs and PCT stages over all of them (`parallel.mesh`;
+        `CUDA_VISIBLE_DEVICES` selects them); "cuda:k" runs on that card.
       align_model: "ProbCons" or "CONTRAlign".
       fold_model: "Boltzmann", "Vienna" or "CONTRAfold"; the consensus uses
         the BL* parameters under "Boltzmann" and Vienna's otherwise.

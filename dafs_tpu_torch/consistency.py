@@ -1,6 +1,6 @@
 """Similarity scores and probabilistic consistency transformations (PCT).
 
-Port of `dafs_tpu/consistency.py` (single device):
+Port of `dafs_tpu/consistency.py`:
 - calculate_similarity_score (src/dafs.cpp:713-764): a sparse NW-like DP
   with a path-length counter, as a row scan with a running max and a
   vectorized reconstruction of the Y-run lengths, batched over all sequence
@@ -12,6 +12,13 @@ Port of `dafs_tpu/consistency.py` (single device):
   p'_x = sum_y w_y * M_yx^T B_y M_yx, likewise;
 - relax_fourway_consistency (src/dafs.cpp:377-444, `-f`): the four-way PCT
   coupling match and pair posteriors, as two batched matrix chains.
+
+The two 3-way PCTs split their worklists (the pairs; the sequences) over
+the work mesh of `device` (`parallel.mesh`), as `dafs_tpu`'s
+`_sharded_pct` does: each shard gets a copy of the posterior tensors and
+runs its own entries, in chunks of fixed shape (`MP_CHUNK`, `BP_CHUNK`),
+so a shard's results are the single-device run's bit for bit.  The
+similarity DP and four-way PCT run on the mesh's first device.
 
 The similarity DP is max-plus code and matches the JAX package bit for
 bit.  The PCT products run through `torch.matmul` (full float32: TF32 is off
@@ -27,9 +34,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dafs_tpu_torch.parallel import mesh
 from dafs_tpu_torch.typedefs import CUTOFF
 
 NEGI = float(np.float32(-3e38))
+MP_CHUNK = 32  # worklist pairs per batched product of the 3-way match PCT
+BP_CHUNK = 8   # worklist sequences per batched product of the base-pair PCT
 
 
 def _round_up(n, m):
@@ -120,50 +130,24 @@ def _pct_weights_match(sim: np.ndarray, x: int, y: int, w_pct: float) -> np.ndar
     return w
 
 
-def relax_matching_probability(
-    mp: np.ndarray, sim: np.ndarray, lens: list[int], w_pct_a: float, device
-) -> np.ndarray:
-    """3-way PCT over the padded (N, N, L, L) match-posterior tensor.
-
-    mp[x, y] is the dense (L, L) match matrix of pair (x, y) (zeros beyond
-    lens, zeros where below cutoff); mp[y, x] is its transpose and mp[x, x]
-    identity.  Returns the transformed tensor with the same conventions
-    (entries <= CUTOFF dropped).
-    """
-    N, _, L, _ = mp.shape
+def match_worklist(sim: np.ndarray, w_pct_a: float):
+    """The 3-way PCT's worklist: the pairs (x, y), x < y, in order, and per
+    pair xs, ys (int64), its weights over z (B, N) and their float32 sum."""
+    N = sim.shape[0]
     pairs = [(x, y) for x in range(N - 1) for y in range(x + 1, N)]
-    if not pairs:
-        return mp.copy()
-    xs = np.array([x for x, _ in pairs])
-    ys = np.array([y for _, y in pairs])
-    W = np.stack([_pct_weights_match(sim, x, y, w_pct_a) for x, y in pairs])
-    sum_w = np.array([np.sum(w, dtype=np.float32) for w in W], np.float32)
-    dev = torch.device(device)
-    m = torch.from_numpy(mp).to(dev)
-    Wt = torch.from_numpy(W).to(dev)
-    # post[b, i, j] = sum_{z, k} w[b, z] mp[z, x_b, k, i] mp[z, y_b, k, j]
-    a = (Wt[:, :, None, None] * m[:, xs].transpose(0, 1)).reshape(len(pairs), N * L, L)
-    bm = m[:, ys].transpose(0, 1).reshape(len(pairs), N * L, L)
-    post = torch.matmul(a.transpose(1, 2), bm) / torch.from_numpy(sum_w).to(dev)[:, None, None]
-    post = torch.where(post <= CUTOFF, 0.0, post).cpu().numpy()
-    out = np.zeros_like(mp)
+    xs = np.array([x for x, _ in pairs], np.int64)
+    ys = np.array([y for _, y in pairs], np.int64)
+    W = np.zeros((len(pairs), N), np.float32)
     for b, (x, y) in enumerate(pairs):
-        p = post[b]
-        p[lens[x]:, :] = 0.0
-        p[:, lens[y]:] = 0.0
-        out[x, y] = p
-        out[y, x] = p.T
-    for x in range(N):
-        out[x, x][np.arange(lens[x]), np.arange(lens[x])] = 1.0
-    return out
+        W[b] = _pct_weights_match(sim, x, y, w_pct_a)
+    sum_w = np.array([np.sum(w, dtype=np.float32) for w in W], np.float32)
+    return pairs, xs, ys, W, sum_w
 
 
-def relax_basepairing_probability(
-    bp: np.ndarray, mp: np.ndarray, sim: np.ndarray, lens: list[int],
-    w_pct_s: float, device,
-) -> np.ndarray:
-    """PCT for base-pair posteriors: p'_x = sum_y w_y M_yx^T B_y M_yx."""
-    N, L, _ = bp.shape
+def basepair_worklist(sim: np.ndarray, w_pct_s: float):
+    """The base-pair PCT's worklist: every sequence x (int64), its weights
+    over y (N, N) and their float32 sum."""
+    N = sim.shape[0]
     f = np.float32
     W = np.zeros((N, N), np.float32)
     sum_w = np.ones(N, np.float32)
@@ -177,17 +161,119 @@ def relax_basepairing_probability(
             w = np.float32(w * scale)
         W[x] = w
         sum_w[x] = np.float32(np.sum(w, dtype=np.float32))
-    dev = torch.device(device)
-    m = torch.from_numpy(mp).to(dev)
-    b = torch.from_numpy(bp).to(dev)
-    mx = m.transpose(0, 1)  # mx[x, y, k, i] = mp[y, x, k, i]
-    inner = torch.matmul(b[None], mx)                    # (x, y, k, j)
-    terms = torch.matmul(mx.transpose(2, 3), inner)      # (x, y, i, j)
-    post = torch.einsum("xy,xyij->xij", torch.from_numpy(W).to(dev), terms)
-    post = post / torch.from_numpy(sum_w).to(dev)[:, None, None]
-    post = torch.triu(post, 1)
-    out = torch.where(post <= CUTOFF, 0.0, post).cpu().numpy()
-    for x in range(N):
+    return np.arange(N, dtype=np.int64), W, sum_w
+
+
+def pad_worklist(rows: int, idx: tuple, W, sum_w):
+    """A worklist padded to `rows` entries: index arrays with 0, weights
+    with 0, sums of weights with 1 (finite zero results)."""
+    return (tuple(mesh.pad_rows(a, rows, 0) for a in idx), mesh.pad_rows(W, rows, 0),
+            mesh.pad_rows(sum_w, rows, 1))
+
+
+def _chunks(chunk: int, idx: tuple, W, sum_w, dev):
+    """The worklist padded to a multiple of `chunk`, its weights and their
+    sums on `dev`, and the slice of each chunk."""
+    Bp = _round_up(len(W), chunk)
+    idx, W, sum_w = pad_worklist(Bp, idx, W, sum_w)
+    return (idx, torch.from_numpy(W).to(dev), torch.from_numpy(sum_w).to(dev),
+            [slice(c, c + chunk) for c in range(0, Bp, chunk)])
+
+
+def relax_match_rows(m: torch.Tensor, xs, ys, W, sum_w) -> torch.Tensor:
+    """The 3-way PCT of worklist entries on the device of `m`, the (N, N,
+    L, L) posterior tensor: (B, L, L) with entries <= CUTOFF dropped, not
+    yet cut to the lengths;
+    post[b, i, j] = sum_{z, k} w[b, z] m[z, x_b, k, i] m[z, y_b, k, j] / sum_w[b].
+
+    The products run MP_CHUNK entries at a time, the last chunk padded, so
+    that every batched product has one shape whatever the worklist's
+    length: cuBLAS picks its algorithm, and any split of the sum, by shape,
+    and a shard's entries then equal the unsharded run's bit for bit."""
+    N, _, L, _ = m.shape
+    B = len(W)
+    (xs, ys), Wt, swt, chunks = _chunks(MP_CHUNK, (xs, ys), W, sum_w, m.device)
+    outs = []
+    for c in chunks:
+        a = (Wt[c, :, None, None] * m[:, xs[c]].transpose(0, 1)).reshape(MP_CHUNK, N * L, L)
+        bm = m[:, ys[c]].transpose(0, 1).reshape(MP_CHUNK, N * L, L)
+        post = torch.matmul(a.transpose(1, 2), bm) / swt[c, None, None]
+        outs.append(torch.where(post <= CUTOFF, 0.0, post))
+    return torch.cat(outs)[:B]
+
+
+def relax_basepair_rows(b: torch.Tensor, m: torch.Tensor, xs, W, sum_w) -> torch.Tensor:
+    """The base-pair PCT of worklist entries on the device of `b` (N, L, L)
+    and `m` (N, N, L, L): (B, L, L) upper triangles with entries <= CUTOFF
+    dropped, not yet cut to the lengths;
+    post[b] = sum_y w[b, y] M_{y x_b}^T B_y M_{y x_b} / sum_w[b].
+    BP_CHUNK entries at a time, the last chunk padded, for the reason
+    `relax_match_rows` gives."""
+    B = len(W)
+    (xs,), Wt, swt, chunks = _chunks(BP_CHUNK, (xs,), W, sum_w, b.device)
+    mt = m.transpose(0, 1)  # mt[x, y, k, i] = mp[y, x, k, i]
+    outs = []
+    for c in chunks:
+        mx = mt[xs[c]]                                   # (x, y, k, i)
+        inner = torch.matmul(b[None], mx)                # (x, y, k, j)
+        terms = torch.matmul(mx.transpose(2, 3), inner)  # (x, y, i, j)
+        post = torch.einsum("xy,xyij->xij", Wt[c], terms) / swt[c, None, None]
+        post = torch.triu(post, 1)
+        outs.append(torch.where(post <= CUTOFF, 0.0, post))
+    return torch.cat(outs)[:B]
+
+
+def _on_mesh(device, idx: tuple, W, sum_w, run, *tensors) -> np.ndarray:
+    """A PCT worklist split over the work mesh of `device`
+    (`parallel.mesh`): each shard gets a copy of the posterior `tensors`
+    and runs `run` on its own entries; every shard is launched before any
+    is read back, and the results come back in worklist order."""
+    devices = mesh.work_devices(device)
+    rows = len(W)
+    padded, slices = mesh.shard_slices(rows, len(devices))
+    idx, W, sum_w = pad_worklist(padded, idx, W, sum_w)
+    copies = {d: [torch.from_numpy(t).to(d) for t in tensors] for d in set(devices)}
+    outs = [run(*copies[d], *(a[sl] for a in idx), W[sl], sum_w[sl])
+            for d, sl in zip(devices, slices)]
+    return mesh.gather(outs, rows)
+
+
+def relax_matching_probability(
+    mp: np.ndarray, sim: np.ndarray, lens: list[int], w_pct_a: float, device
+) -> np.ndarray:
+    """3-way PCT over the padded (N, N, L, L) match-posterior tensor.
+
+    mp[x, y] is the dense (L, L) match matrix of pair (x, y) (zeros beyond
+    lens, zeros where below cutoff); mp[y, x] is its transpose and mp[x, x]
+    identity.  Returns the transformed tensor with the same conventions
+    (entries <= CUTOFF dropped).  The pairs split over the work mesh of
+    `device`.
+    """
+    pairs, xs, ys, W, sum_w = match_worklist(sim, w_pct_a)
+    if not pairs:
+        return mp.copy()
+    post = _on_mesh(device, (xs, ys), W, sum_w, relax_match_rows, mp)
+    out = np.zeros_like(mp)
+    for b, (x, y) in enumerate(pairs):
+        p = post[b]
+        p[lens[x]:, :] = 0.0
+        p[:, lens[y]:] = 0.0
+        out[x, y] = p
+        out[y, x] = p.T
+    for x in range(mp.shape[0]):
+        out[x, x][np.arange(lens[x]), np.arange(lens[x])] = 1.0
+    return out
+
+
+def relax_basepairing_probability(
+    bp: np.ndarray, mp: np.ndarray, sim: np.ndarray, lens: list[int],
+    w_pct_s: float, device,
+) -> np.ndarray:
+    """PCT for base-pair posteriors: p'_x = sum_y w_y M_yx^T B_y M_yx.  The
+    sequences split over the work mesh of `device`."""
+    xs, W, sum_w = basepair_worklist(sim, w_pct_s)
+    out = _on_mesh(device, (xs,), W, sum_w, relax_basepair_rows, bp, mp)
+    for x in range(bp.shape[0]):
         out[x, lens[x]:, :] = 0.0
         out[x, :, lens[x]:] = 0.0
     return out

@@ -45,7 +45,11 @@ class ProbCons(AlignModel):
 
     def batch_pair_posteriors(self, seqs1, seqs2, device):
         from dafs_tpu_torch.ops import pairhmm
+        from dafs_tpu_torch.parallel import mesh
 
+        devices = mesh.work_devices(device)
+        if len(devices) > 1:
+            return mesh.sharded_pair_posteriors(seqs1, seqs2, self.th, devices)
         return pairhmm.batch_posteriors(seqs1, seqs2, self.th, device)
 
 

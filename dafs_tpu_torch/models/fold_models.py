@@ -54,10 +54,15 @@ class RNAfold(FoldModel):
 
     def batch_bp_posteriors(self, seqs, device, th=None, constraints=None):
         from dafs_tpu_torch.ops import mccaskill
+        from dafs_tpu_torch.parallel import mesh
 
-        return mccaskill.batch_bp_posteriors_fast(
-            seqs, self.th if th is None else th, device, bl=self.bl,
-            constraints=constraints)
+        th = self.th if th is None else th
+        devices = mesh.work_devices(device)
+        if len(devices) > 1:
+            return mesh.sharded_bp_posteriors(seqs, th, devices, bl=self.bl,
+                                              constraints=constraints)
+        return mccaskill.batch_bp_posteriors_fast(seqs, th, device, bl=self.bl,
+                                                  constraints=constraints)
 
 
 class CONTRAfold(FoldModel):

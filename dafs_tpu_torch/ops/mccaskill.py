@@ -21,6 +21,7 @@ import torch
 from dafs_tpu_torch import params
 from dafs_tpu_torch.ops import energy_params as ep
 from dafs_tpu_torch.ops import mccaskill_kernel as MK
+from dafs_tpu_torch.parallel.mesh import shard_slices
 
 TURN = ep.TURN
 MAXLOOP = ep.MAXLOOP
@@ -148,44 +149,53 @@ def _fast_tabs(bl: bool) -> dict:
     return _FAST_TABLES[bl]
 
 
-def batch_bp_posteriors_fast(seqs, th, device, bl=True, constraints=None):
+def batch_bp_posteriors_fast(seqs, th, device, bl=True, constraints=None, devices=None):
     """BP posteriors of a list of sequences: one batched run per 32-length
     bucket.  Returns dense (n, n) float32 numpy matrices (upper triangle),
-    entries kept only when strictly greater than `th`, clipped to [0, 1]."""
-    dev = torch.device(device)
-    tabs = params.to_device(_fast_tabs(bl), dev)
+    entries kept only when strictly greater than `th`, clipped to [0, 1].
+
+    devices: the shards of a work mesh (`parallel.mesh`), `[device]` by
+    default.  Each bucket is padded to a multiple of their count with
+    trivial length-1 rows (`ns = 1`) and split over them in order; every
+    attempt of the pf-scale ladder launches every shard, and only the real
+    rows decide whether it is retried, as in `dafs_tpu`."""
+    devices = [torch.device(device)] if devices is None else devices
+    tabs = {d: params.to_device(_fast_tabs(bl), d) for d in set(devices)}
     f32 = np.float32
     out: list = [None] * len(seqs)
     buckets: dict[int, list[int]] = {}
     for i, s in enumerate(seqs):
         buckets.setdefault(_round_up(len(s), 32), []).append(i)
     for L, idxs in buckets.items():
-        B = len(idxs)
+        B, slices = shard_slices(len(idxs), len(devices))
         S = np.zeros((B, L + 2), np.int32)
         PT = np.zeros((B, L + 2, L + 2), np.int32)
         AP = np.zeros((B, L + 2, L + 2), bool)
         AU = np.zeros((B, L + 2), bool)
         CODES = np.zeros((3, B, L + 2), np.int32)
-        ns = np.zeros(B, np.int32)
+        ns = np.ones(B, np.int32)  # padding rows: trivial length-1 problems
         for bi, i in enumerate(idxs):
             c = constraints[i] if constraints is not None else None
             S[bi], PT[bi], AP[bi], AU[bi] = _prepare(seqs[i], L, c)
             for ci, k in enumerate((5, 6, 8)):  # tri-, tetra-, hexaloop k-mers
                 CODES[ci, bi] = _kmer_codes(S[bi], k, L)
             ns[bi] = len(seqs[i])
-        as_t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-        args = (as_t(S), as_t(PT), as_t(AP), as_t(AU), as_t(ns))
-        codes = tuple(as_t(c) for c in CODES)
+        shards = []
+        for dev, sl in zip(devices, slices):
+            as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a[sl])).to(dev)  # noqa: E731
+            shards.append((dev, sl, (as_t(S), as_t(PT), as_t(AP), as_t(AU), as_t(ns)),
+                           tuple(as_t(c) for c in CODES)))
         sc = np.full(B, np.exp(-0.6), np.float32)
         for _ in range(16):
-            pout, Q = MK.mccaskill_fast(*args, as_t(sc), codes, tabs)
-            Qv = Q.cpu().numpy()
-            pm = pout.cpu().numpy()
+            runs = [MK.mccaskill_fast(*args, torch.from_numpy(sc[sl]).to(dev), codes, tabs[dev])
+                    for dev, sl, args, codes in shards]
+            Qv = np.concatenate([Q.cpu().numpy() for _, Q in runs])
+            pm = np.concatenate([pout.cpu().numpy() for pout, _ in runs])
             good = (
                 np.isfinite(Qv) & (Qv > 1e-25) & (Qv < 1e25)
                 & np.isfinite(pm).all(axis=(1, 2))
             )
-            if good.all():
+            if good[: len(idxs)].all():
                 break
             over = ~np.isfinite(Qv) | (Qv >= 1e25)
             sc = np.where(good, sc, np.where(over, f32(sc * 0.8), f32(sc * 1.25)))

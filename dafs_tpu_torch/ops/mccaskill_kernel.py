@@ -7,7 +7,11 @@ out, and the diagonal scans are Python loops, so the JAX dynamic slices at
 the scan index become plain slices.  Every expression keeps the JAX
 version's operand order; the sums (the 31x31 stencil contractions and the
 multiloop row sums) reduce in PyTorch's order, so results agree to float32
-rounding, not bit for bit.
+rounding, not bit for bit.  Each row's result is independent of the batch
+it runs in, on the card too, so a batch split over a work mesh
+(`parallel.mesh`) gives the unsplit batch's bits: every sum is either a
+reduction whose order PyTorch sets by the row's own extents, or, for the
+exterior loop's per-row sums, `tree_sum`.
 
 - the interior-loop stencil is factorized: per-cell "inner side" factors
   (inner pair type + its adjacent bases) are precomputed once, multiplied
@@ -33,6 +37,18 @@ TURN = ep.TURN
 MAXLOOP = ep.MAXLOOP
 SW = MAXLOOP + 1  # stencil width
 RP = SW + 5       # top row padding of diag-major buffers
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in a fixed pairwise order, zero-padded to a
+    power of two: the same bits whatever the batch size.  (A reduction
+    with one output a row, as these are, is ordered by PyTorch's CUDA
+    reduce by the number of rows when they are few.)"""
+    n = x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, (1 << (n - 1).bit_length()) - n))
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
 
 
 def mccaskill_fast(S, pt, allow_pair, allow_unpaired, n, sc, codes, tabs):
@@ -157,9 +173,12 @@ def mccaskill_fast(S, pt, allow_pair, allow_unpaired, n, sc, codes, tabs):
         M[:, i, i + d] = vec[:, : Lp - d]
 
     def contract(C, M):
-        # sum over (u, s) of C[u, s] * sc_pow[s] * M[u, s, i]
+        # sum over (u, s) of C[u, s] * sc_pow[s] * M[u, s, i]; a reduction
+        # over two dims that are not the fastest, whose order PyTorch sets by
+        # the (u, s, i) extents alone, where a batched product's would
+        # depend on the batch (cuBLAS picks by shape)
         Cs = C[None] * sc_pow[:, None, :]
-        return torch.einsum("bus,busi->bi", Cs, M)
+        return (Cs[..., None] * M).sum(dim=(1, 2))
 
     kk = ii[None, :]
 
@@ -312,10 +331,8 @@ def mccaskill_fast(S, pt, allow_pair, allow_unpaired, n, sc, codes, tabs):
     q1[:, 0] = 1.0
     for j in range(1, Lp - 1):
         gate_j = torch.where(allow_unpaired[:, j], 1.0, 0.0)
-        stems = torch.sum(
-            torch.where((ii >= 1) & (ii <= j), torch.roll(q1, 1, dims=1) * qb_ext[:, :, j], 0.0),
-            dim=1,
-        )
+        stems = tree_sum(
+            torch.where((ii >= 1) & (ii <= j), torch.roll(q1, 1, dims=1) * qb_ext[:, :, j], 0.0))
         val = q1[:, j - 1] * sc * gate_j + stems
         q1[:, j] = torch.where(j <= n, val, q1[:, j])
 
@@ -323,10 +340,8 @@ def mccaskill_fast(S, pt, allow_pair, allow_unpaired, n, sc, codes, tabs):
     qn[torch.arange(B, device=dev), (n.long() + 1).clamp(0, Lp - 1)] = 1.0
     for i in range(Lp - 2, 0, -1):
         gate_i = torch.where(allow_unpaired[:, i], 1.0, 0.0)
-        stems = torch.sum(
-            torch.where((ii >= i) & (ii <= nb), qb_ext[:, i, :] * torch.roll(qn, -1, dims=1), 0.0),
-            dim=1,
-        )
+        stems = tree_sum(
+            torch.where((ii >= i) & (ii <= nb), qb_ext[:, i, :] * torch.roll(qn, -1, dims=1), 0.0))
         val = qn[:, i + 1] * sc * gate_i + stems
         qn[:, i] = torch.where(i <= n, val, qn[:, i])
     Q = q1[torch.arange(B, device=dev), n.long().clamp(0, Lp - 1)]

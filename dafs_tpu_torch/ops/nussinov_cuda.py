@@ -79,8 +79,9 @@ def decode(sm: torch.Tensor, lens: torch.Tensor):
     score = torch.empty((B,), dtype=torch.float32, device=dev)
     ss = torch.empty((B, L), dtype=torch.int32, device=dev)
     p = cuda_lib.ptr
-    (DECODE_LONG if long else DECODE)(p(sm), p(lens), p(dp), p(mt), p(code), p(score),
-                                      p(ss), B, L, cluster_size(B, L))
+    with torch.cuda.device(dev):  # the launch goes to this card's stream
+        (DECODE_LONG if long else DECODE)(p(sm), p(lens), p(dp), p(mt), p(code), p(score),
+                                          p(ss), B, L, cluster_size(B, L))
     return score, ss
 
 
@@ -90,5 +91,6 @@ def floor_probe(buf: torch.Tensor, steps: int, cluster: int) -> None:
     floor_probe_kernel).  For timing; it computes nothing of use.  `buf`:
     float32 CUDA scratch of 64 * 32 values."""
     cuda_lib.check(buf, "buf", torch.float32, (64 * 32,), buf.device)
-    FLOOR_PROBE(cuda_lib.ptr(buf), steps, cluster)
+    with torch.cuda.device(buf.device):
+        FLOOR_PROBE(cuda_lib.ptr(buf), steps, cluster)
 

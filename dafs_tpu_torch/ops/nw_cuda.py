@@ -71,13 +71,14 @@ def decode(sm, env_first, env_last, l1, l2):
     score = torch.empty((B,), dtype=torch.float32, device=dev)
     al = torch.empty((B, L1), dtype=torch.int32, device=dev)
     p = cuda_lib.ptr
-    if is_long(L1, L2):
-        code = torch.empty((B, L1 + 1, L2 + 1), dtype=torch.uint8, device=dev)
-        DECODE_LONG(p(sm), p(env_first), p(env_last), p(l1), p(l2), p(score), p(al),
-                    p(code), B, L1, L2)
-    else:
-        DECODE(p(sm), p(env_first), p(env_last), p(l1), p(l2), p(score), p(al),
-               B, L1, L2)
+    with torch.cuda.device(dev):  # the launch goes to this card's stream
+        if is_long(L1, L2):
+            code = torch.empty((B, L1 + 1, L2 + 1), dtype=torch.uint8, device=dev)
+            DECODE_LONG(p(sm), p(env_first), p(env_last), p(l1), p(l2), p(score), p(al),
+                        p(code), B, L1, L2)
+        else:
+            DECODE(p(sm), p(env_first), p(env_last), p(l1), p(l2), p(score), p(al),
+                   B, L1, L2)
     return score, al
 
 

@@ -34,6 +34,7 @@ from dafs_tpu_torch import params
 from dafs_tpu_torch.models import probcons_params as P
 from dafs_tpu_torch.ops import pairhmm_cuda
 from dafs_tpu_torch.ops.logspace import LOG_ZERO, log_add, probcons_exp
+from dafs_tpu_torch.parallel.mesh import gather, pad_rows, shard_slices
 
 
 def _round_up(n, m):
@@ -268,26 +269,35 @@ def encode_batch(seqs, lmax):
     return codes, np.array([len(s) for s in seqs], dtype=np.int32)
 
 
-def batch_posteriors(seqs1, seqs2, threshold, device):
+def batch_posteriors(seqs1, seqs2, threshold, device, devices=None):
     """Posteriors for aligned-index pairs of raw strings.
 
     Returns a list of dense float32 (L1, L2) numpy matrices with entries kept
     only when strictly greater than `threshold` (src/align.cpp:69-78).
+
+    devices: the shards of a work mesh (`parallel.mesh`), `[device]` by
+    default.  The batch is padded to a multiple of their count with
+    length-1 pairs and split over them in order; l1max and l2max are the
+    whole batch's, so every pair runs at the unsplit shapes.  Every shard
+    is launched before any is read back.
     """
     if not seqs1:
         return []
+    devices = [torch.device(device)] if devices is None else devices
     # bucket padding as in the JAX package, so the shapes match its kernels
     l1max = _round_up(max(len(s) for s in seqs1), 32)
     l2max = _round_up(max(len(s) for s in seqs2), 32)
     codes1, len1 = encode_batch(seqs1, l1max)
     codes2, len2 = encode_batch(seqs2, l2max)
-    dev = torch.device(device)
-    as_t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    post = forward_backward_posterior(
-        as_t(codes1), as_t(len1), as_t(codes2), as_t(len2), tables(dev)
-    ).cpu().numpy()
+    B = len(seqs1)
+    Bp, slices = shard_slices(B, len(devices))
+    host = (pad_rows(codes1, Bp, 0), pad_rows(len1, Bp, 1),
+            pad_rows(codes2, Bp, 0), pad_rows(len2, Bp, 1))
+    shards = [(tuple(torch.from_numpy(a[sl]).to(dev) for a in host), tables(dev))
+              for dev, sl in zip(devices, slices)]
+    post = gather([forward_backward_posterior(*args, tab) for args, tab in shards], B)
     out = []
-    for b in range(len(seqs1)):
+    for b in range(B):
         p = post[b, : len1[b], : len2[b]].copy()
         p[p <= threshold] = 0.0
         out.append(p)

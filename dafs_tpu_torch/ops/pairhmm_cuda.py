@@ -192,4 +192,5 @@ def floor_probe(buf: torch.Tensor, steps: int, nwarps: int, B: int) -> None:
     cuda_lib.check(buf, "buf", torch.float32, buf.shape, buf.device)
     if buf.device.type != "cuda" or buf.numel() < B * 32 * nwarps:
         raise ValueError("pairhmm_cuda.floor_probe: buf too small or not on the card")
-    FLOOR_PROBE(cuda_lib.ptr(buf), steps, nwarps, B)
+    with torch.cuda.device(buf.device):
+        FLOOR_PROBE(cuda_lib.ptr(buf), steps, nwarps, B)

@@ -3,7 +3,10 @@
 
 Host Python orchestrates (guide tree, projections, output); the numerics
 (posterior models, PCT products, similarity DP, RNAalifold consensus, the
-DD loop, final structure decode) run on `device`.
+DD loop, final structure decode) run on `device`.  Where the work mesh of
+`device` has more than one shard (`parallel.mesh`: "cuda" is every visible
+card), the McCaskill fold, the ProbCons all-pairs stage and the two 3-way
+PCTs split over it, as in `dafs_tpu`; the rest runs on `device`.
 
 `Dafs(align_model, fold_model, Options(...), alifold_model=Alifold(0.0,
 bl=...))` equals the JAX package's `Dafs` of the same arguments for every

@@ -406,3 +406,72 @@ def test_fourway_matches_cpu(dev):
     got = consistency.relax_fourway_consistency(mp, bp, lens, 0.5, dev)
     want = consistency.relax_fourway_consistency(mp, bp, lens, 0.5, "cpu")
     assert float(np.abs(got.astype(np.float64) - want).max()) <= 1e-6
+
+
+def test_decoders_on_last_card_match_plain(dev):
+    """K3 and K4 launch on their tensors' card: on the last visible card
+    (not the current one) each is bit-equal to its plain version there.
+    Needs two or more cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    assert torch.cuda.current_device() != last.index
+    rng = np.random.default_rng(11)
+    sm, lens = _nussinov_stress(last, rng, 8, 352, 2)
+    _equal(nussinov.decode(sm, lens), nussinov.decode_plain(sm, lens))
+    args = _nw_stress(last, rng, 4, 320, 320, 1)
+    _equal(nw.decode(*args), nw.decode_plain(*args))
+    torch.cuda.synchronize(last)
+
+
+def test_sharded_stages_match_unsharded(dev):
+    """All-pairs, fold and both PCTs on a two-shard mesh of this card (and
+    across the cards where there are several) equal the single-device run
+    bit for bit."""
+    from dafs_tpu_torch import consistency
+    from dafs_tpu_torch.fasta import load_fasta
+    from dafs_tpu_torch.models import align_models, fold_models
+    from dafs_tpu_torch.parallel import mesh
+
+    fa = load_fasta("tests/data/RF00005_0.fa")
+    lens = [len(f.seq) for f in fa]
+
+    def stages():
+        bp = fold_models.RNAfold(True, 1e-4).all_seqs(fa, dev)
+        mp = align_models.ProbCons(0.01).all_pairs(fa, dev)
+        sim = consistency.similarity_matrix(mp, lens, dev)
+        return (bp, mp, consistency.relax_basepairing_probability(bp, mp, sim, lens, 0.25, dev),
+                consistency.relax_matching_probability(mp, sim, lens, 0.25, dev))
+
+    with mesh.force_single_device():
+        want = stages()
+    for shards in ({2} | {torch.cuda.device_count()}) - {1}:
+        with mesh.virtual_mesh(shards):
+            got = stages()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
+
+
+@pytest.mark.parametrize("family,shards", [
+    ("RF00005", 25), ("RF00005", 7), ("RF00017_4", 3), ("RF00017_4", 10),
+])
+def test_fold_rows_do_not_depend_on_the_batch(family, shards, dev):
+    """McCaskill on the card gives each sequence the same bits in a batch
+    of any size: the 50-sequence family of `bench.py` (built from RF00005)
+    and RF00017, split over `shards` shards of one card, against one batch
+    (cuBLAS and PyTorch's reduce order by shape; `ops/mccaskill_kernel`)."""
+    from dafs_tpu_torch.fasta import load_fasta
+    from dafs_tpu_torch.models import fold_models
+    from dafs_tpu_torch.parallel import dryrun, mesh
+
+    seqs = [f.seq for f in load_fasta(f"tests/data/{family}_0.fa" if family == "RF00005"
+                                      else f"tests/data/{family}.fa")]
+    if family == "RF00005":
+        seqs = dryrun.mutated_family(seqs)
+    fold = fold_models.RNAfold(True, 0.0)
+    with mesh.force_single_device():
+        want = fold.batch_bp_posteriors(seqs, dev)
+    with mesh.virtual_mesh(shards):
+        got = fold.batch_bp_posteriors(seqs, torch.device("cuda", 0))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))

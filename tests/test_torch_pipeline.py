@@ -272,12 +272,15 @@ def test_fold_model_without_bl_runs():
 def test_port_runs_without_jax(kw):
     """The default path, path (a) (CONTRAlign, CONTRAfold), path (b)
     (bp-update), `--ipknot`, `-m 0`, and refinement with four-way PCT, the
-    adam DD update and a parameter file, with `jax` blocked: nothing of JAX
-    or `dafs_tpu` loads."""
+    adam DD update and a parameter file, with `jax` blocked and the
+    multi-device modules (`parallel.mesh`, `multiproc`, `dryrun`) imported:
+    nothing of JAX or `dafs_tpu` loads."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import dafs_tpu_torch\n"
+        "import dafs_tpu_torch.parallel.dryrun, dafs_tpu_torch.parallel.mesh\n"
+        "import dafs_tpu_torch.parallel.multiproc\n"
         f"res = dafs_tpu_torch.align_and_fold({[s for _, s in TINY]!r}, device='cpu', **{kw!r})\n"
         "assert not [m for m in sys.modules if m == 'dafs_tpu' or m.startswith('dafs_tpu.')]\n"
         "assert [c for c in res.consensus_calls if c['route'] == 'alifold']\n"
