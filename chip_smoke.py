@@ -30,7 +30,27 @@
    are counted and printed.  Prints the phase split and the consensus calls
    (count, seconds, slowest call, retry-ladder attempts), the largest
    tree-score difference, and the RF00017 similarity matrix against the
-   recorded one.
+   recorded one.  Records every consensus call's alignment.
+4a. Consensus phase (after 4): family-50 (the 50-sequence family of the
+   mesh phase) through the whole default path on two shards of one card,
+   its consensus calls recorded; then the RNAalifold consensus kernels
+   (`csrc/alifold.cu`: inside, exterior, outside) at RF00005's final call,
+   RF00017's largest call and family-50's last (NS 50), each for bl True
+   and False, a constrained call (the run's `SS_cons`), BCUT 8 and 31 and
+   a start from a scale at which Q overflows, through the pf-scale ladder
+   under the plain loops on the card and under the kernels: every attempt
+   at the same scale with the same reading of Q and pout, and at the last
+   pout within rtol 2e-4 / atol 1e-6 and Q within rtol 2e-4.  At each
+   shape's first case, the call's host prep and the plain loops' device
+   kernels (torch.profiler), then each kernel against its plain step (qb,
+   q1, qn and Q within rtol 2e-4 and a millionth of their largest value;
+   pout as above), two runs bit-equal, its CUDA-event ms beside the plain
+   step's, its bound (operations and bytes of these inputs) and its
+   dependency floor (as many empty launches, one after another).
+   In every run of the slice, consensus, paths, solvers, options and mesh
+   phases the consensus kernels must have launched exactly as often as the
+   run's alifold calls need (n - 1 inside and outside launches and one
+   exterior launch a ladder attempt).
 5. Paths phase: the slice's other configurations through the same entry
    point, each with the launch counts set to 0 just before it and read just
    after: path (a), `align_model="CONTRAlign", fold_model="CONTRAfold"`
@@ -780,6 +800,7 @@ def kernels():
         "pairhmm_posterior": pairhmm_cuda.POSTERIOR,
         "nussinov": nussinov_cuda.DECODE,
         "nw": nw_cuda.DECODE,
+        **alifold_kernels(),
     }
 
 
@@ -833,15 +854,19 @@ def slice_phase(dev):
     for fa_name, snap_name in (("RF00005_0.fa", "rf00005_default_tpu.txt"),
                                ("RF00017_4.fa", "rf00017_default_tpu.txt")):
         fa = read_fasta(fa_name)
-        before = {name: k.launches for name, k in kernels().items()}
+        before = {name: k.launches for name, k in all_kernels().items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = align_and_fold(fa, device=dev)
+        with recorded_consensus(CONSENSUS_CALLS.setdefault(fa_name, [])):
+            res = align_and_fold(fa, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        SS_CONS[fa_name] = res.ss_cons
         phases = ", ".join(f"{k} {v:.3f}s" for k, v in res.phase_seconds.items())
         print(f"slice {fa_name}: {wall:.3f}s wall; {phases}")
         consensus_summary(fa_name, res.consensus_calls)
+        check_consensus(f"slice {fa_name}", res.consensus_calls,
+                        {name: k.launches - before[name] for name, k in all_kernels().items()})
         for name, k in kernels().items():
             if k.launches <= before[name]:
                 raise AssertionError(f"{fa_name}: kernel {name} was not launched")
@@ -875,6 +900,363 @@ def slice_phase(dev):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     return counts
+
+
+# -------------------------------------------------------------- consensus --
+# The RNAalifold consensus's CUDA kernels (`csrc/alifold.cu`): inside and
+# outside a launch a diagonal, exterior once a call.  Each alifold call of a
+# run launches inside and outside n - 1 times an attempt of its pf-scale
+# ladder and exterior once an attempt.
+
+ALIFOLD = {
+    "alifold_inside": ("INSIDE", "dafs_tpu/ops/alifold_kernel.py:938"),
+    "alifold_exterior": ("EXTERIOR", "dafs_tpu/ops/alifold_kernel.py:957"),
+    "alifold_outside": ("OUTSIDE", "dafs_tpu/ops/alifold_kernel.py:1214"),
+}
+# (family or run, its consensus calls as (seqs, constraint, bl)), recorded
+# in the slice phase and family-50's run
+CONSENSUS_CALLS: dict = {}
+SS_CONS: dict = {}
+
+
+def alifold_kernels():
+    from dafs_tpu_torch.ops import alifold_cuda
+
+    return {name: getattr(alifold_cuda, attr) for name, (attr, _) in ALIFOLD.items()}
+
+
+def check_consensus(label, calls, counts):
+    """The consensus kernels ran for the run's alifold calls, and only as
+    often as those calls need: n - 1 inside and outside launches and one
+    exterior launch an attempt."""
+    ali = [c for c in calls if c["route"] == "alifold"]
+    steps = sum(c["attempts"] * (c["n"] - 1) for c in ali)
+    want = {"alifold_inside": steps, "alifold_exterior": sum(c["attempts"] for c in ali),
+            "alifold_outside": steps}
+    got = {name: counts[name] for name in ALIFOLD}
+    print(f"{label}: consensus kernels {got} for {len(ali)} alifold calls "
+          f"({sum(c['attempts'] for c in ali)} ladder attempts)", flush=True)
+    if got != want:
+        raise AssertionError(f"{label}: consensus launches {got}, the alifold calls need {want}")
+
+
+class recorded_consensus:
+    """Records (seqs, constraint, bl) of every consensus call while on."""
+
+    def __init__(self, store):
+        self.store = store
+
+    def __enter__(self):
+        from dafs_tpu_torch.ops import alifold
+
+        self.saved = fn = alifold.Alifold.consensus
+
+        def rec(obj, seqs, device, constraint=None, bcut=None):
+            self.store.append((list(seqs), constraint, obj.bl))
+            return fn(obj, seqs, device, constraint, bcut)
+
+        alifold.Alifold.consensus = rec
+        return self.store
+
+    def __exit__(self, *exc):
+        from dafs_tpu_torch.ops import alifold
+
+        alifold.Alifold.consensus = self.saved
+
+
+def alifold_work(x, NS, bcut, tabs):
+    """{kernel: (float operations, bytes)} of one consensus call on these
+    inputs.  Operations: multiplies, adds and divides (compares and selects
+    not counted) of the (outer pair, inner pair) combinations the stencil
+    joins, both pair-allowed (the kernels skip the rest), by the cell's
+    category (csrc/alifold.cu: 42 a sequence with the B group, 22 the whole
+    A group, 12 or 6 the cut A group; 3 more a combination inside, 4
+    outside), plus the multiloop sums, the exterior chains and the
+    accumulator updates.  Bytes: what the function needs, read once and
+    written once, on the same cells: the per-sequence channels (4 floats
+    a side) and pair codes of the pair-allowed cells that are an outer or
+    an inner pair of such a combination (the codes at one byte, the width
+    their values 0..174 need; the B group's codes on its corner only); the
+    per-cell factors and qb of the pair-allowed cells; qm, qm1 and bs_seg
+    over the triangle; the pair mask a byte a cell; the letters and gap
+    counts of the sequences (1 and 2 bytes); the loop tables `tabs`
+    floats.  The B group's special tables are left out: a lower bound needs
+    only the entries the data selects, and those are among the operations'
+    table reads."""
+    from dafs_tpu_torch.ops import alifold_cuda
+
+    P = np.asarray(x["allow_pair"], bool)
+    Lp, n = P.shape[0], x["n"]
+    combos = 0.0
+    seq_ops = 0.0
+    inner, outer = np.zeros_like(P), np.zeros_like(P)
+    inner_b, outer_b = np.zeros_like(P), np.zeros_like(P)
+    for u, v in alifold_cuda.stencil_cells():
+        # hit[a, b]: outer pair (a, b + 1 + v), inner pair (a + 1 + u, b)
+        hit = P[: Lp - 1 - u, 1 + v :] & P[1 + u :, : Lp - 1 - v]
+        c = float(hit.sum())
+        full, uside = v < bcut, u < bcut
+        combos += c
+        seq_ops += c * (42 if full and uside else 22 if full else 12 if uside else 6)
+        inner[1 + u :, : Lp - 1 - v] |= hit
+        outer[: Lp - 1 - u, 1 + v :] |= hit
+        if full and uside:
+            inner_b[1 + u :, : Lp - 1 - v] |= hit
+            outer_b[: Lp - 1 - u, 1 + v :] |= hit
+    cells = n * (n + 1) / 2.0
+    pi, pj = np.nonzero(P)
+    pairs = float(len(pi))
+    ml_in = 2.0 * float((pj - pi).sum()) + 3.0 * (cells + n * (n - 1) * (n + 1) / 6.0)
+    ml_out = 5.0 * float((n - pj).sum())
+    accum = 4.0 * n ** 3 / 6.0
+    chan = 4 * 4 * NS                       # 4 float channels a sequence
+    seqs = NS * (n + 2) * (1 + 1 + 2)       # S5, S3 letters, a2s gap counts
+    common = seqs + 1 * cells + 4 * tabs    # and the pair mask, the loop tables
+    n_in, n_out = float(inner.sum()), float(outer.sum())
+    n_in_b, n_out_b = float(inner_b.sum()), float(outer_b.sum())
+    # inside: channels of the outer and the inner pairs; the B group's codes
+    # (3 outer, 1 inner); hp, psc, mlclose, mlstem read and qb written a
+    # pair; bs_seg read, qm and qm1 written a cell; the gate a column
+    inside_b = (chan * (n_out + n_in) + NS * (3 * n_out_b + n_in_b) + (4 * 4 + 4) * pairs
+                + (4 + 2 * 4) * cells + 4 * n + common)
+    # outside: the same channels and codes (3 inner, 1 outer); qb, ext,
+    # mlstem, mlclose, psc read and pout written a pair; qm and bs_seg a
+    # cell; q1 and qn a column, and Q
+    outside_b = (chan * (n_out + n_in) + NS * (3 * n_in_b + n_out_b) + (5 * 4 + 4) * pairs
+                 + 2 * 4 * cells + 2 * 4 * n + 4 + common)
+    return {
+        "alifold_inside": (NS * seq_ops + 3 * combos + ml_in + 10 * cells, inside_b),
+        "alifold_exterior": (2 * 3.0 * pairs + 2 * 3.0 * n,
+                             2 * 4 * pairs + 4 * n + 2 * 4 * n + 4),
+        "alifold_outside": (NS * seq_ops + 4 * combos + ml_out + accum + 15 * pairs, outside_b),
+    }
+
+
+def consensus_agree(got, want, kind):
+    """The consensus tolerance, rtol 2e-4, with the atol each value takes:
+    1e-6 for the pair probabilities pout (as between the plain version and
+    `dafs_tpu`); none for Q; a millionth of the largest |want| for qb's
+    plane and the exterior chains q1 and qn, whose scale is the ladder's."""
+    import torch
+
+    got = torch.as_tensor(got).double()
+    want = torch.as_tensor(want).double().to(got.device)
+    atol = {"pout": 1e-6, "Q": 0.0}.get(kind)
+    if atol is None:
+        atol = 1e-6 * float(want.abs().max())
+    return bool(torch.allclose(got, want, rtol=2e-4, atol=atol))
+
+
+def traced(loops, trace):
+    """`loops` recording each ladder attempt's scale, Q and whether pout is
+    finite."""
+    import torch
+
+    def run(p, n, BCUT):
+        pout, Q = loops(p, n, BCUT=BCUT)
+        trace.append((float(p["sc_t"]), float(Q), bool(torch.isfinite(pout).all())))
+        return pout, Q
+
+    return run
+
+
+def ladder_steps(trace):
+    """Each attempt's scale and what the ladder read from it: Q not finite,
+    at or above 1e25, at or below 1e-25, pout not finite."""
+    return [(sc, not np.isfinite(q), q >= 1e25, q <= 1e-25, not fin) for sc, q, fin in trace]
+
+
+def consensus_case(dev, seqs, bl, con, bcut, sc0):
+    """The consensus of `seqs` through the pf-scale ladder from sc0, under
+    the plain loops on the card and under the kernels: each attempt's scale
+    and reading of Q and pout are the same, and at the last pout and Q
+    agree (`consensus_agree`).  Returns (inputs, BCUT, device args, scale,
+    (plain trace, kernel trace), max_abs_err of pout, ok, (Q kernel,
+    Q plain))."""
+    from dafs_tpu_torch.ops import alifold, alifold_cuda
+    from dafs_tpu_torch.ops import alifold_kernel as ak
+
+    x = alifold._inputs(seqs, bl, con)
+    n = x["n"]
+    BCUT = alifold._bcut(x["S"], n) if bcut is None else bcut
+    args = alifold.device_args(x, dev)
+    tr_p, tr_k = [], []
+    want_p, want_q, sc_p, att_p = alifold.partition(args, n, x["bsn0"], sc0, BCUT,
+                                                    traced(ak.inside_outside, tr_p))
+    got_p, got_q, sc_k, att_k = alifold.partition(args, n, x["bsn0"], sc0, BCUT,
+                                                  traced(alifold_cuda.inside_outside, tr_k))
+    err = float(np.abs(got_p.astype(np.float64) - want_p).max())
+    ok = (consensus_agree(got_p, want_p, "pout") and consensus_agree(got_q, want_q, "Q")
+          and (att_k, sc_k) == (att_p, sc_p) and ladder_steps(tr_k) == ladder_steps(tr_p))
+    return x, BCUT, args, sc_p, (tr_p, tr_k), err, ok, (got_q, want_q)
+
+
+def consensus_rows(dev, shapes):
+    """The kernels at each shape: for bl True and False, a constrained call,
+    BCUT 8 and 31, and the ladder from a scale at which Q overflows, held
+    to the plain loops on the card (ladder and all); at the first case also
+    per kernel: its outputs against the plain step's, two runs bit-equal,
+    CUDA-event ms beside the plain step's ms, the bound and the dependency
+    floor, and the call's host prep.  Returns {kernel: row}."""
+    from dafs_tpu_torch.ops import alifold
+
+    rows = {}
+    for label, (seqs, _, bl), ss in shapes:
+        n = len(seqs[0])
+        con = ss if len(ss) == n else "".join("x" if k % 10 == 5 else "." for k in range(n))
+        cases = [("bl", bl, None, None), ("vienna" if bl else "bl", not bl, None, None),
+                 ("constrained", bl, con, None), ("BCUT 8", bl, None, 8),
+                 ("BCUT 31", bl, None, 31), ("overflowing start", bl, None, None)]
+        sc0 = alifold.SC0
+        for k, (case, cbl, ccon, cbcut) in enumerate(cases):
+            t0 = time.perf_counter()
+            x, BCUT, args, sc, (tr_p, tr_k), err, ok, (gq, wq) = consensus_case(
+                dev, seqs, cbl, ccon, cbcut, sc0)
+            print(f"consensus {label} (NS, n) = ({len(seqs)}, {n}) {case}: BCUT {BCUT}, ladder "
+                  f"attempts plain/kernel {len(tr_p)}/{len(tr_k)} from sc {float(sc0)!r} to "
+                  f"{float(sc)!r}; pout max_abs_err {err!r}, Q {gq!r} against {wq!r}; within "
+                  f"rtol 2e-4 (atol 1e-6 pout, 0 Q): {ok} ({time.perf_counter() - t0:.1f}s)",
+                  flush=True)
+            for a, ((scp, qp, fp), (sck, qk, fk)) in enumerate(zip(tr_p, tr_k)):
+                print(f"  attempt {a + 1}: sc {scp!r} / {sck!r}, Q plain {qp!r} kernel {qk!r}, "
+                      f"pout finite plain {fp} kernel {fk}", flush=True)
+            if case == "overflowing start" and (np.isfinite(tr_p[0][1])
+                                                or np.isfinite(tr_k[0][1])):
+                raise AssertionError(f"consensus {label}: Q did not overflow at sc {sc0!r}")
+            if not ok:
+                raise AssertionError(f"consensus {label} {case}: the kernels differ from the "
+                                     "plain loops")
+            if k == 0:
+                # later cases start warm, as the pipeline's calls do; the
+                # last from the scale that takes the stable Q to 1e39
+                # (Q scales as sc ** n), past float32's largest
+                sc0 = sc
+                sc_over = np.float32(sc * np.float32((1e39 / wq) ** (1.0 / n)))
+                rows = consensus_timing(dev, label, seqs, bl, x, BCUT, args, sc, rows)
+            if k == len(cases) - 2:
+                sc0 = sc_over
+    return rows
+
+
+def device_launches(fn):
+    """(kernels, copies and fills) the device ran for one call of `fn`
+    (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = sum(nm.lower().startswith(("memcpy", "memset")) for nm in names)
+    return len(names) - copies, copies
+
+
+def host_s(fn):
+    """Host seconds of one call of `fn`, ended by a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def consensus_timing(dev, label, seqs, bl, x, BCUT, args, sc, rows):
+    """The kernels at the first case of a shape (see `consensus_rows`)."""
+    import torch
+
+    from dafs_tpu_torch.ops import alifold, alifold_cuda
+    from dafs_tpu_torch.ops import alifold_kernel as ak
+
+    n, NS = x["n"], x["S"].shape[0]
+    # host prep of the call and `prepare`, then the plain loops' device work
+    inputs_s = host_s(lambda: alifold._inputs(seqs, bl, None))
+    copies_s = host_s(lambda: alifold.device_args(x, dev))
+    prepare_s = host_s(lambda: ak.prepare(*args, n, sc, x["bsn0"]))
+    p = ak.prepare(*args, n, sc, x["bsn0"])
+    plain_s = host_s(lambda: ak.inside_outside(p, n, BCUT=BCUT))
+    plain_kernels, plain_copies = device_launches(lambda: ak.inside_outside(p, n, BCUT=BCUT))
+    print(f"consensus {label} (NS, n, Lp) = ({NS}, {n}, {x['L'] + 2}), one call: host prep "
+          f"_inputs {inputs_s:.4f} s, device_args {copies_s:.4f} s, prepare {prepare_s:.4f} s; "
+          f"the plain loops {plain_s:.3f} s, {plain_kernels} device kernels and {plain_copies} "
+          f"copies and fills", flush=True)
+    out = {}
+    plain_ms = {"alifold_inside": once_ms(lambda: out.update(i=ak.inside(p, n, BCUT=BCUT)))}
+    qb_mat, qm, _, QBL = out["i"]
+    plain_ms["alifold_exterior"] = once_ms(lambda: out.update(e=ak.exterior(p, n, qb_mat)))
+    q1, qn, Q = out["e"]
+    plain_ms["alifold_outside"] = once_ms(
+        lambda: out.update(o=ak.outside(p, n, QBL, qm, q1, qn, Q, BCUT=BCUT)))
+    pk = alifold_cuda.pack(p, n, BCUT)
+    la = alifold_cuda.launch_args(pk)
+    t = pk["tensors"]
+    # (run, its outputs, the plain step's, each output's tolerance kind, launches)
+    runs = {"alifold_inside": (lambda: alifold_cuda.inside(pk, la), lambda: (t["qbl"],),
+                               (QBL[0],), ("qb",), n - 1),
+            "alifold_exterior": (lambda: alifold_cuda.exterior(pk, la),
+                                 lambda: (t["q1"], t["qn"], t["q"].reshape(())), (q1, qn, Q),
+                                 ("q1", "qn", "Q"), 1),
+            "alifold_outside": (lambda: alifold_cuda.outside(pk, la), lambda: (t["pout"],),
+                                (out["o"],), ("pout",), n - 1)}
+    work = alifold_work(x, NS, BCUT, ak.SW * ak.SW + 2 * ak.SW + 4)
+    reps = 5 if n < 200 else 3
+    for name, (run, got, want, kinds, steps) in runs.items():
+        run()
+        first = [g.clone() for g in got()]
+        run()
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b) for a, b in zip(first, got()))
+        err = max(max_abs(g, w) for g, w in zip(got(), want))
+        ok = all(consensus_agree(g, w, k) for g, w, k in zip(got(), want, kinds))
+        ms = cuda_ms(run, reps)
+        floor_ms = cuda_ms(lambda: alifold_cuda.floor_probe(dev, steps), reps)
+        bound_ms, bound_by, bound_kind = bound(*work[name])
+        print(f"kernel {name} {label} (NS, n, Lp) = ({NS}, {n}, {x['L'] + 2}) BCUT {BCUT}: "
+              f"two runs bit-equal={exact} max_abs_err={err!r} within tolerance "
+              f"({', '.join(kinds)})={ok} kernel_ms={ms:.4f} plain_ms={plain_ms[name]:.4f} "
+              f"launches={steps}; floor ({steps} empty launches) {floor_ms:.4f} ms", flush=True)
+        print(f"  bound {bound_ms:.6f} ms ({bound_by}; {work[name][0]:.4g} operations, "
+              f"{work[name][1]:.4g} bytes); kernel at {bound_ms / ms:.2e} of it", flush=True)
+        if not (exact and ok):
+            raise AssertionError(f"{name} {label}: not bit-equal across runs or outside the "
+                                 "tolerance of the plain step")
+        rows[name] = dict(name=name, route="cuda", source="dafs_tpu_torch/csrc/alifold.cu",
+                          replaces=ALIFOLD[name][1], max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms[name], bound_ms=bound_ms, bound_by=bound_by,
+                          bound_kind=bound_kind, library_ms=None, floor_ms=floor_ms,
+                          launched_by="alifold_cuda.inside_outside")
+    total = cuda_ms(lambda: alifold_cuda.inside_outside(p, n, BCUT=BCUT), reps)
+    floor = cuda_ms(lambda: alifold_cuda.floor_probe(dev, 2 * (n - 1) + 1), reps)
+    print(f"consensus {label}: the three kernels {total:.4f} ms a call (pack and launches), "
+          f"plain {sum(plain_ms.values()):.1f} ms; floor ({2 * (n - 1) + 1} empty launches) "
+          f"{floor:.4f} ms", flush=True)
+    return rows
+
+
+def consensus_phase(dev):
+    """Family-50's whole default pipeline on two shards of one card (its
+    calls recorded), then the kernel rows at RF00005's final call,
+    RF00017's largest and family-50's last.  Returns (rows, {kernel: {run
+    label: launches}})."""
+    from dafs_tpu_torch.parallel import mesh
+
+    by_path = {name: {} for name in all_kernels()}
+    fa = family50()
+    label = "family-50 default pipeline, 2 shards of one card"
+    store = CONSENSUS_CALLS["family-50"] = []
+    with mesh.virtual_mesh(2), recorded_consensus(store):
+        res, wall, counts = timed_run(fa, dev)
+    report_run(label, res, wall, counts, fa, by_path)
+    consensus_summary(label, res.consensus_calls)
+    SS_CONS["family-50"] = res.ss_cons
+    largest = max(CONSENSUS_CALLS["RF00017_4.fa"], key=lambda c: len(c[0]) * len(c[0][0]))
+    shapes = [("RF00005 final", CONSENSUS_CALLS["RF00005_0.fa"][-1], SS_CONS["RF00005_0.fa"]),
+              ("RF00017 largest", largest, SS_CONS["RF00017_4.fa"]),
+              ("family-50 last", store[-1], SS_CONS["family-50"])]
+    return consensus_rows(dev, shapes), by_path
 
 
 # ------------------------------------------------------------------ paths --
@@ -934,6 +1316,7 @@ def paths_phase(dev):
                   f"plain pair-CRF (align phase) {res.phase_seconds['align']:.3f}s")
         consensus_summary(label, res.consensus_calls)
         print(f"{label} launch counts: {counts}")
+        check_consensus(label, res.consensus_calls, counts)
         need = ("nussinov", "nw") + (PAIRHMM if path == "b" else ())
         for name in need:
             if counts[name] <= 0:
@@ -1136,6 +1519,7 @@ def solvers_phase(dev):
               f"merges (iterations, violations at exit: {res.host_dd}); {phases}", flush=True)
         consensus_summary(label, res.consensus_calls)
         print(f"{label} launch counts: {counts}", flush=True)
+        check_consensus(label, res.consensus_calls, counts)
         check_rows(res, fa)
         check_levels(label, res.ss_cons)
         return iters
@@ -1162,6 +1546,7 @@ def solvers_phase(dev):
     host, host_wall, host_counts = timed_run(fa, dev, dd_host=True)
     print(f"path (e) dd_host=True RF00005_0.fa: {host_wall:.3f}s wall; launch counts "
           f"{host_counts}", flush=True)
+    check_consensus("path (e) dd_host=True RF00005_0.fa", host.consensus_calls, host_counts)
     blocks = dumps.count("\n\n")
     print(f"{label}: {len(dumps)} bytes of dumps, {blocks} blocks for {iters} iterations; "
           f"output {'equals' if str(res) == str(host) else 'DIFFERS from'} the dd_host run's",
@@ -1209,6 +1594,7 @@ def report_run(label, res, wall, counts, fa, by_path, need=PAIRHMM + ("nussinov"
     for name in need:
         if counts[name] <= 0:
             raise AssertionError(f"{label}: kernel {name} was not launched")
+    check_consensus(label, res.consensus_calls, counts)
     check_rows(res, fa)
     check_balanced(label, res.ss_cons)
 
@@ -1586,7 +1972,10 @@ def main() -> int:
     rows.update(run("kernels", kernel_phase))
     rows.update(run("length", length_phase))
     counts = run("slice", slice_phase)
-    by_path = run("paths", paths_phase)
+    ali_rows, by_path = run("consensus", consensus_phase)
+    rows.update(ali_rows)
+    for name, runs in run("paths", paths_phase).items():
+        by_path[name].update(runs)
     for name, runs in run("solvers", solvers_phase).items():
         by_path[name].update(runs)
     for name, runs in run("options", options_phase).items():

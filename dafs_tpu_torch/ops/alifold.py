@@ -13,8 +13,10 @@ The consensus extends the McCaskill recursion with
 - column-based multiloop unpaired costs (expMLbase^n_seq per column) and
   column-based interior stencil bounds, as in alipfold.c.
 
-Host prep is numpy; the inside/outside (`alifold_kernel.alifold_fast`) runs
-as PyTorch on the caller's device.  The slow reference recursion
+Host prep is numpy; `alifold_kernel.prepare` builds the device inputs on
+the caller's device, and the inside/outside runs there: the CUDA kernels of
+`ops/alifold_cuda.py` on a card, the plain PyTorch loops
+(`alifold_kernel.inside_outside`) on the CPU.  The slow reference recursion
 (`_ali_inside_outside`) is not ported; it stays in `dafs_tpu` as an oracle.
 """
 
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from dafs_tpu_torch import params
+from dafs_tpu_torch.ops import alifold_cuda
 from dafs_tpu_torch.ops import alifold_kernel as ak
 from dafs_tpu_torch.ops import energy_params as ep
 from dafs_tpu_torch.ops import mccaskill
@@ -107,7 +110,7 @@ def make_pscores(S: np.ndarray, n: int, cv_fact=1.0, nc_fact=1.0) -> np.ndarray:
 
 
 def _bcut(S: np.ndarray, n: int) -> int:
-    """Small-loop support bound (alifold_kernel.alifold_fast BCUT).
+    """Small-loop support bound (alifold_kernel.inside_outside's BCUT).
 
     The pair-coupled B-group categories need a per-sequence loop size <= 2
     and the separable A-category indicators a loop size <= 3, i.e. an
@@ -230,6 +233,45 @@ def _inputs(seqs: list[str], bl: bool, constraint: str | None):
     )
 
 
+def device_args(x: dict, dev) -> tuple:
+    """The tensors of `_inputs`' output `x` on `dev`, as
+    `alifold_kernel.prepare` takes them before (n, sc, bsn0)."""
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    planes = {k: as_t(v) for k, v in x["planes"].items()}
+    planes.update(ak.build_seq_planes(
+        params.to_device(x["gtabs"], dev), as_t(x["S"]), as_t(x["S5"]), as_t(x["S3"]),
+    ))
+    return (
+        planes, params.to_device(x["loop_tabs"], dev),
+        params.to_device(x["spec_tabs"], dev),
+        as_t(x["psc_fac"].astype(np.float32)), as_t(x["allow_pair"]),
+        as_t(x["allow_unpaired"]), as_t(x["S5b"]), as_t(x["S3b"]), as_t(x["A2Sb"]),
+    )
+
+
+def partition(args: tuple, n: int, bsn0, sc0, BCUT: int, loops):
+    """The pf-scale retry ladder: `loops` (the CUDA kernels'
+    `alifold_cuda.inside_outside` or the plain `alifold_kernel.inside_outside`)
+    on `prepare(*args, n, sc, bsn0)` from the per-column scale sc0, scaled
+    by 0.8 while Q overflows (or is not finite) and by 1.25 while it
+    underflows, at most 24 attempts.  Returns (pout as numpy (Lp, Lp), Q,
+    the scale that stabilized Q, attempts)."""
+    sc = np.float32(sc0)
+    for attempt in range(1, 25):
+        pout, Q = loops(ak.prepare(*args, n, sc, bsn0), n, BCUT=BCUT)
+        Qv = float(Q)
+        pout_h = pout.cpu().numpy()
+        if np.isfinite(Qv) and 1e-25 < Qv < 1e25 and np.isfinite(pout_h).all():
+            return pout_h, Qv, sc, attempt
+        if not np.isfinite(Qv) or Qv >= 1e25:
+            sc = np.float32(sc * 0.8)
+        else:
+            sc = np.float32(sc * 1.25)
+    raise FloatingPointError(
+        f"alifold: partition function did not stabilize (L={n}, nseq={args[6].shape[0]})"
+    )
+
+
 class Alifold:
     """Consensus base-pair probabilities of an alignment group (class
     Alifold, src/alifold.h:29-35).
@@ -244,7 +286,9 @@ class Alifold:
     JAX process.  pm = pout/Q is scale-invariant up to float32 rounding.
 
     `calls` records one dict per consensus call (n_seq, length, route,
-    ladder attempts, host seconds) for the caller's accounting.
+    ladder attempts, host seconds; for the alifold route also the seconds
+    of its host prep, `_inputs` and the copies to the device) for the
+    caller's accounting.
 
     `leaves` maps an ungapped sequence to McCaskill posteriors the caller
     already holds for it under this object's parameter set, before any
@@ -309,40 +353,19 @@ class Alifold:
             BCUT = max(BCUT, min(ak.SW, bcut))
 
         dev = torch.device(device)
-        as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-        planes = {k: as_t(v) for k, v in x["planes"].items()}
-        planes.update(ak.build_seq_planes(
-            params.to_device(x["gtabs"], dev), as_t(x["S"]), as_t(x["S5"]), as_t(x["S3"]),
-        ))
-        args = (
-            planes, params.to_device(x["loop_tabs"], dev),
-            params.to_device(x["spec_tabs"], dev),
-            as_t(x["psc_fac"].astype(np.float32)), as_t(x["allow_pair"]),
-            as_t(x["allow_unpaired"]), as_t(x["S5b"]), as_t(x["S3b"]), as_t(x["A2Sb"]),
-        )
-
+        loops = alifold_cuda.inside_outside if dev.type == "cuda" else ak.inside_outside
         key = (nseq, L)
-        sc = np.float32(self.sc_cache.get(key, SC0))
-        for attempt in range(1, 25):
-            pout, Q = ak.alifold_fast(*args, n, sc, x["bsn0"], BCUT=BCUT)
-            Qv = float(Q)
-            pout_h = pout.cpu().numpy()
-            if np.isfinite(Qv) and 1e-25 < Qv < 1e25 and np.isfinite(pout_h).all():
-                self.sc_cache[key] = float(sc)
-                break
-            if not np.isfinite(Qv) or Qv >= 1e25:
-                sc = np.float32(sc * 0.8)
-            else:
-                sc = np.float32(sc * 1.25)
-        else:
-            raise FloatingPointError(
-                f"alifold: partition function did not stabilize (L={n}, nseq={nseq})"
-            )
+        args = device_args(x, dev)
+        t_prep = time.perf_counter() - t0
+        pout_h, _, sc, attempt = partition(args, n, x["bsn0"], self.sc_cache.get(key, SC0),
+                                        BCUT, loops)
+        self.sc_cache[key] = float(sc)
         pm = pout_h[1 : n + 1, 1 : n + 1].astype(np.float32)
         pm[pm <= self.th] = 0.0
         pm[pm <= 1e-6] = 0.0
         np.clip(pm, 0.0, 1.0, out=pm)
         self.calls.append(dict(ns=nseq, n=n, route="alifold", bcut=BCUT,
-                               attempts=attempt, seconds=time.perf_counter() - t0))
+                               attempts=attempt, seconds=time.perf_counter() - t0,
+                               prep_seconds=t_prep))
         return pm
 

@@ -11,9 +11,13 @@ Port of `dafs_tpu/ops/alifold_kernel.py` (the JAX package wrote
   `G[code_i, code_j]`; the JAX version's one-hot contractions (there only to
   avoid gathers on the TPU) have exactly one nonzero term per output, so the
   values are the same bit for bit.
-- `alifold_fast` is written in the manner of `mccaskill_kernel.py`: the
-  `lax.scan`s over diagonals are Python loops and the dynamic slices at the
-  scan index are plain slices or index gathers.  The staircase blocks
+- `dafs_tpu`'s `alifold_fast` is here `prepare` (the inputs of both routes:
+  the diag-major planes, the flat tables, the per-sequence vectors, the
+  scale powers) and then the plain loops `inside`, `exterior` and
+  `outside` (`inside_outside`; their own shift tensors `plain_inputs`), written in
+  the manner of `mccaskill_kernel.py`: the `lax.scan`s over diagonals are
+  Python loops and the dynamic slices at the scan index are plain slices
+  or index gathers.  The staircase blocks
   (`STAIR`) and the B-group support cut (`BCUT`) are kept; both are exact.
   Every one-hot stack that the JAX version contracts with a table (the
   loop-size one-hots, the pair-code one-hots, and the 7-way pair-type select
@@ -24,8 +28,9 @@ Port of `dafs_tpu/ops/alifold_kernel.py` (the JAX package wrote
   reduce in PyTorch's order, so results agree with JAX to float32 rounding.
 
 Semantics: ViennaRNA 2.4.x alipfold.c as read by `dafs_tpu/ops/alifold.py`.
-A measurement on the card decides whether `alifold_fast` becomes a
-hand-written kernel.
+On the card the consensus runs the CUDA kernels of `ops/alifold_cuda.py`
+on `prepare`'s tensors instead of the plain loops, which stay the plain
+version they are held to.
 """
 
 from __future__ import annotations
@@ -361,9 +366,31 @@ def build_seq_planes(gtabs: dict, S, S5, S3) -> dict:
 
 # ============================== inside/outside ==============================
 
-def alifold_fast(planes, loop_tabs, spec_tabs, psc_fac, allow_pair,
-                 allow_unpaired, S5b, S3b, A2Sb, n, sc, bsn0, *, BCUT=SW):
-    """Consensus inside+outside.  Returns (pout (Lp, Lp), Q (0-d)).
+def to_ldiag(M, Lp):
+    """Diag-major layout of the (..., Lp, Lp) planes M: out[..., RP + dd,
+    C0 + i] = M[..., i, i + dd], zero outside the matrix (the buffer's
+    padding rows and columns), C0 = SW + 2."""
+    dev = M.device
+    C0 = SW + 2
+    ii = torch.arange(Lp, device=dev)
+    dd_g = ii[:, None]
+    colg = (ii[None, :] + dd_g).clamp(0, Lp - 1)
+    inb = (ii[None, :] + dd_g) <= (Lp - 1)
+    body = torch.where(inb, M[..., ii[None, :], colg], 0)
+    out = torch.zeros((*M.shape[:-2], Lp + 2 * RP, Lp + 2 * C0), dtype=M.dtype, device=dev)
+    out[..., RP : RP + Lp, C0 : C0 + Lp] = body
+    return out
+
+
+def prepare(planes, loop_tabs, spec_tabs, psc_fac, allow_pair, allow_unpaired,
+            S5b, S3b, A2Sb, n, sc, bsn0):
+    """Everything the inside/outside reads, built on the tensors' device:
+    the diag-major layouts, the flattened tables, the per-sequence vectors,
+    the scale powers (`sc_pow`, `SCP`), the blocked-segment factors
+    `bs_seg` and the unpaired gate.  Every `pow`, `exp` and table lookup of
+    the consensus is rounded here, so the plain loops (`inside_outside`)
+    and the CUDA kernels (`ops/alifold_cuda.py`) multiply and add the same
+    values.  The plain loops add their own shift tensors (`plain_inputs`).
 
     planes: the host planes of `build_planes` (HP/EXT/MLSTEM/MLCLOSE, (Lp,
     Lp) float32) and the `build_seq_planes` planes (NS, Lp, Lp), as tensors
@@ -372,124 +399,49 @@ def alifold_fast(planes, loop_tabs, spec_tabs, psc_fac, allow_pair,
     covariance factor; allow_pair (Lp, Lp) and allow_unpaired (Lp,) bool;
     S5b/S3b/A2Sb (NS, PAD+Lp+Lp+PAD) padded per-sequence vectors; n the
     alignment length; sc the per-column scale and bsn0 = expMLbase**NS
-    (numpy float32 scalars).
-
-    BCUT: host-proven support bound for the small-loop-size terms — every
-    alignment window of BCUT or more columns holds >= 4 non-gap positions
-    in every sequence, so the B-group masks (loop sizes <= 2) and the
-    separable A-category indicators (sizes <= 3) vanish at offsets >= BCUT.
-    The B group is evaluated on the (u, v < BCUT) corner only; the skipped
-    terms are exact zeros, so results equal the full-block evaluation bit
-    for bit.
-    """
+    (numpy float32 scalars)."""
     dev = psc_fac.device
     f32 = torch.float32
     NS = S5b.shape[0]
     Lp = psc_fac.shape[0]
-    NROWS = Lp + 2 * RP
-    C0 = SW + 2                      # column padding of diag-major buffers
-    WC = Lp + 2 * C0
     ii = torch.arange(Lp, device=dev)
     sc_t = torch.tensor(sc, dtype=f32, device=dev)
     bsn = torch.tensor(bsn0, dtype=f32, device=dev) * sc_t
     sc_pow = sc_t ** torch.arange(Lp + 1, device=dev).to(f32)   # sc ** k
     P = planes
+    p = dict(dev=dev, NS=NS, Lp=Lp, NROWS=Lp + 2 * RP, WC=Lp + 2 * (SW + 2), ii=ii,
+             sc_t=sc_t, bsn=bsn, sc_pow=sc_pow, EXT=P["EXT"], bases={})
 
     # ---- diag-major layouts: out[RP + dd, C0 + i] = M[i, i + dd] -----------
-    dd_g = ii[:, None]
-    colg = (ii[None, :] + dd_g).clamp(0, Lp - 1)
-    inb = (ii[None, :] + dd_g) <= (Lp - 1)
-
-    def to_ldiag(M):
-        body = torch.where(inb, M[..., ii[None, :], colg], 0)
-        out = torch.zeros((*M.shape[:-2], NROWS, WC), dtype=M.dtype, device=dev)
-        out[..., RP : RP + Lp, C0 : C0 + Lp] = body
-        return out
-
-    def row(B, d):
-        return B[..., d + RP, C0 : C0 + Lp]
-
-    HPL = to_ldiag(P["HP"])
-    EXTL = to_ldiag(P["EXT"])
-    MLSTEML = to_ldiag(P["MLSTEM"])
-    MLCLOSEL = to_ldiag(P["MLCLOSE"])
-    PSCL = to_ldiag(psc_fac)
-    APL = to_ldiag(allow_pair.to(f32))
+    p["HPL"] = to_ldiag(P["HP"], Lp)
+    p["MLSTEML"] = to_ldiag(P["MLSTEM"], Lp)
+    p["MLCLOSEL"] = to_ldiag(P["MLCLOSE"], Lp)
+    p["PSCL"] = to_ldiag(psc_fac, Lp)
+    p["APL"] = to_ldiag(allow_pair.to(f32), Lp)
     # A-group channels [4 categories x NS]: MMI (general), MM1N, MM23, TAU
-    IN_ST = to_ldiag(torch.cat([P["MMI_IN"], P["MM1N_IN"], P["MM23_IN"], P["TAU_IN"]]))
-    OUT_ST = to_ldiag(torch.cat([P["MMI_OUT"], P["MM1N_OUT"], P["MM23_OUT"], P["TAU_OUT"]]))
-    TP7L = to_ldiag(P["TP7"])
-    RT7L = to_ldiag(P["RT7"])
-    C175OL, C35OL = to_ldiag(P["C175_OUT"]), to_ldiag(P["C35_OUT"])
-    C175IL, C35IL = to_ldiag(P["C175_IN"]), to_ldiag(P["C35_IN"])
-
-    # ---- stencil gathers ----------------------------------------------------
-    # stencil_in:  [c, u, v', i] = CH[c, row d-2-u-(v0+v'), col i+1+u]
-    # stencil_out: [c, u, v', i] = CH[c, row d+2+u+(v0+v'), col i-1-u]
-    # (zero outside the matrix: the buffers' padding rows and columns)
-    _bases: dict = {}
-
-    def stencil(CH, d, outward, u_ext, v0, v1):
-        key = (outward, u_ext, v0, v1)
-        if key not in _bases:
-            u = torch.arange(u_ext, device=dev)[:, None, None]
-            v = torch.arange(v0, v1, device=dev)[None, :, None]
-            i = ii[None, None, :]
-            if outward:
-                _bases[key] = (RP + 2 + u + v) * WC + C0 + i - 1 - u
-            else:
-                _bases[key] = (RP - 2 - u - v) * WC + C0 + i + 1 + u
-        return CH.reshape(CH.shape[0], -1)[:, _bases[key] + d * WC]
+    p["IN_ST"] = to_ldiag(torch.cat([P["MMI_IN"], P["MM1N_IN"], P["MM23_IN"], P["TAU_IN"]]), Lp)
+    p["OUT_ST"] = to_ldiag(torch.cat([P["MMI_OUT"], P["MM1N_OUT"], P["MM23_OUT"], P["TAU_OUT"]]), Lp)
+    for k in ("TP7", "RT7", "C175_OUT", "C35_OUT", "C175_IN", "C35_IN"):
+        p[k + "L"] = to_ldiag(P[k], Lp)
 
     # ---- flat lookup tables -------------------------------------------------
-    T7f = spec_tabs["T7"].reshape(-1)            # [tp*7 + tp2]
-    Ti11f = spec_tabs["Ti11"].reshape(-1)        # [c175*7 + t2]
-    Ti21af = spec_tabs["Ti21a"].reshape(-1)      # [c175*35 + m35]
-    Ti21bf = spec_tabs["Ti21b"].reshape(-1)      # [(c35*5 + p)*35 + m35]
-    Ti22f = spec_tabs["Ti22"].reshape(-1)        # [(c175*5 + p)*35 + m35]
-    Ti21b_of = spec_tabs["Ti21b_o"].reshape(-1)  # [c35*175 + c175_in]
-    Ti22_of = spec_tabs["Ti22_o"].reshape(-1)    # [c175*175 + c175_in]
-    blg1 = spec_tabs["blg1"]
-    TGENf = loop_tabs["T_gen"].reshape(-1)       # [u1*SW + u2]
-    BU1d = loop_tabs["BU"]
-    F1N1d = loop_tabs["F1N"]
-    C23 = loop_tabs["C23"]
+    p["T7f"] = spec_tabs["T7"].reshape(-1)            # [tp*7 + tp2]
+    p["Ti11f"] = spec_tabs["Ti11"].reshape(-1)        # [c175*7 + t2]
+    p["Ti21af"] = spec_tabs["Ti21a"].reshape(-1)      # [c175*35 + m35]
+    p["Ti21bf"] = spec_tabs["Ti21b"].reshape(-1)      # [(c35*5 + p)*35 + m35]
+    p["Ti22f"] = spec_tabs["Ti22"].reshape(-1)        # [(c175*5 + p)*35 + m35]
+    p["Ti21b_of"] = spec_tabs["Ti21b_o"].reshape(-1)  # [c35*175 + c175_in]
+    p["Ti22_of"] = spec_tabs["Ti22_o"].reshape(-1)    # [c175*175 + c175_in]
+    p["blg1"] = spec_tabs["blg1"]
+    p["TGENf"] = loop_tabs["T_gen"].reshape(-1)       # [u1*SW + u2]
+    p["BU"], p["F1N"] = loop_tabs["BU"], loop_tabs["F1N"]
+    p["C23"] = loop_tabs["C23"]
 
-    # ---- static shift tensors (no d dependence), (NS, SW, Lp) ---------------
     S5b, S3b, A2Sb = S5b.long(), S3b.long(), A2Sb.long()
-
-    def shifted(big, offsets, width=Lp):
-        return torch.stack([big[:, o : o + width] for o in offsets], dim=1)
-
-    base_a2s = A2Sb[:, PAD : PAD + Lp]
-    U1 = (shifted(A2Sb, [PAD + u for u in range(SW)]) - base_a2s[:, None]).clamp(min=0)
-    SP1u = shifted(S5b, [PAD + 1 + u for u in range(SW)])           # S5[s, i+1+u]
-    base_m1 = A2Sb[:, PAD - 1 : PAD - 1 + Lp]
-    U1o = (base_m1[:, None] - shifted(A2Sb, [PAD - 1 - u for u in range(SW)])).clamp(min=0)
-    SI1ou = shifted(S3b, [PAD - 1 - u for u in range(SW)])          # S3[s, i-1-u]
-
-    BU_u, F1N_u = BU1d[U1], F1N1d[U1]
-    IND_U = torch.stack([(U1 == a).to(f32) for a in range(4)])       # (4, NS, SW, Lp)
-    BU_uo, F1N_uo = BU1d[U1o], F1N1d[U1o]
-    IND_UO = torch.stack([(U1o == a).to(f32) for a in range(4)])
-
-    # v-side planes indexed by alignment column (read per diagonal at
-    # y = y0 + i).  Inside: V2J[s, v, y] = a2s[y+SW-1] - a2s[y+SW-1-v] and
-    # SQ1J[s, v, y] = S3[y+SW-1-v]; outside: V2OJ[s, v, y] = a2s[y+v] - a2s[y]
-    # and SJ1OJ[s, v, y] = S5[y+1+v].
-    Wv = A2Sb.shape[1] - SW
-    V2J = (A2Sb[:, None, SW - 1 : SW - 1 + Wv]
-           - shifted(A2Sb, [SW - 1 - v for v in range(SW)], Wv)).clamp(min=0)
-    SQ1J = shifted(S3b, [SW - 1 - v for v in range(SW)], Wv)
-    V2OJ = (shifted(A2Sb, list(range(SW)), Wv) - A2Sb[:, None, :Wv]).clamp(min=0)
-    SJ1OJ = shifted(S5b, [1 + v for v in range(SW)], Wv)
-    BU_vJ, F1N_vJ = BU1d[V2J], F1N1d[V2J]
-    IND_VJ = torch.stack([(V2J == b).to(f32) for b in range(4)])
-    BU_vOJ, F1N_vOJ = BU1d[V2OJ], F1N1d[V2OJ]
-    IND_VOJ = torch.stack([(V2OJ == b).to(f32) for b in range(4)])
+    p["S5b"], p["S3b"], p["A2Sb"] = S5b, S3b, A2Sb
 
     uv = torch.arange(SW, device=dev)
-    SCP = torch.where(uv[:, None] + uv[None, :] <= MAXLOOP, 1.0, 0.0) * (
+    p["SCP"] = torch.where(uv[:, None] + uv[None, :] <= MAXLOOP, 1.0, 0.0) * (
         sc_t ** (uv[:, None] + uv[None, :] + 2).to(f32)
     )
 
@@ -498,57 +450,145 @@ def alifold_fast(planes, loop_tabs, spec_tabs, psc_fac, allow_pair,
     blocked_pref = torch.cumsum(torch.where(ii >= 1, 1.0 - logv, 0.0), dim=0)
     seg_len = ii[None, :] - ii[:, None] + 1
     seg_blocked = blocked_pref[None, :] - blocked_pref[(ii - 1).clamp(min=0)][:, None]
-    bs_seg = torch.where(
+    p["bs_seg"] = torch.where(
         seg_len <= 0, 1.0,
         torch.where(seg_blocked > 0, 0.0, bsn ** seg_len.to(f32)),
     )
-    gate_u = allow_unpaired.to(f32)
+    p["gate_u"] = allow_unpaired.to(f32)
+    return p
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=f32, device=dev)
 
-    def pad_rows(x, top, bottom):
-        return torch.cat([zeros(top, x.shape[1]), x, zeros(bottom, x.shape[1])], dim=0)
+def plain_inputs(p):
+    """The shift tensors only the plain loops read, added to a `prepare`d
+    `p` at their first call: per stencil offset and sequence the loop
+    sizes (U1, U1o, V2J, V2OJ), the neighbour letters (SP1u, SI1ou, SQ1J,
+    SJ1OJ), their BU/F1N lookups and size indicators, and EXT's diag-major
+    layout.  The CUDA kernels form the same values from the per-sequence
+    vectors themselves, so the card's path never builds these."""
+    if "U1" in p:
+        return p
+    Lp, f32 = p["Lp"], torch.float32
+    S5b, S3b, A2Sb = p["S5b"], p["S3b"], p["A2Sb"]
+    BU1d, F1N1d = p["BU"], p["F1N"]
+    p["EXTL"] = to_ldiag(p["EXT"], Lp)
 
-    def masks(iu, iv):
-        """m[a, b] = iu[a] (u-side) x iv[b] (v-side) for the B-group cells."""
-        def mm(a, b):
-            return iu[a][:, :, None, :] * iv[b][:, None, :, :]
-        m00, m01, m10 = mm(0, 0), mm(0, 1), mm(1, 0)
-        m_sb = m00 + blg1 * (m01 + m10)
-        return m_sb, mm(1, 1), mm(1, 2), mm(2, 1), mm(2, 2)
+    # ---- static shift tensors (no d dependence), (NS, SW, Lp) ---------------
+    def shifted(big, offsets, width=Lp):
+        return torch.stack([big[:, o : o + width] for o in offsets], dim=1)
+
+    base_a2s = A2Sb[:, PAD : PAD + Lp]
+    U1 = (shifted(A2Sb, [PAD + u for u in range(SW)]) - base_a2s[:, None]).clamp(min=0)
+    p["SP1u"] = shifted(S5b, [PAD + 1 + u for u in range(SW)])           # S5[s, i+1+u]
+    base_m1 = A2Sb[:, PAD - 1 : PAD - 1 + Lp]
+    U1o = (base_m1[:, None] - shifted(A2Sb, [PAD - 1 - u for u in range(SW)])).clamp(min=0)
+    p["SI1ou"] = shifted(S3b, [PAD - 1 - u for u in range(SW)])          # S3[s, i-1-u]
+    p["U1"], p["U1o"] = U1, U1o
+
+    p["BU_u"], p["F1N_u"] = BU1d[U1], F1N1d[U1]
+    p["IND_U"] = torch.stack([(U1 == a).to(f32) for a in range(4)])       # (4, NS, SW, Lp)
+    p["BU_uo"], p["F1N_uo"] = BU1d[U1o], F1N1d[U1o]
+    p["IND_UO"] = torch.stack([(U1o == a).to(f32) for a in range(4)])
+
+    # v-side planes indexed by alignment column (read per diagonal at
+    # y = y0 + i).  Inside: V2J[s, v, y] = a2s[y+SW-1] - a2s[y+SW-1-v] and
+    # SQ1J[s, v, y] = S3[y+SW-1-v]; outside: V2OJ[s, v, y] = a2s[y+v] - a2s[y]
+    # and SJ1OJ[s, v, y] = S5[y+1+v].
+    Wv = A2Sb.shape[1] - SW
+    V2J = (A2Sb[:, None, SW - 1 : SW - 1 + Wv]
+           - shifted(A2Sb, [SW - 1 - v for v in range(SW)], Wv)).clamp(min=0)
+    p["SQ1J"] = shifted(S3b, [SW - 1 - v for v in range(SW)], Wv)
+    V2OJ = (shifted(A2Sb, list(range(SW)), Wv) - A2Sb[:, None, :Wv]).clamp(min=0)
+    p["SJ1OJ"] = shifted(S5b, [1 + v for v in range(SW)], Wv)
+    p["V2J"], p["V2OJ"] = V2J, V2OJ
+    p["BU_vJ"], p["F1N_vJ"] = BU1d[V2J], F1N1d[V2J]
+    p["IND_VJ"] = torch.stack([(V2J == b).to(f32) for b in range(4)])
+    p["BU_vOJ"], p["F1N_vOJ"] = BU1d[V2OJ], F1N1d[V2OJ]
+    p["IND_VOJ"] = torch.stack([(V2OJ == b).to(f32) for b in range(4)])
+    return p
+
+
+def _row(B, d, Lp):
+    return B[..., d + RP, SW + 2 : SW + 2 + Lp]
+
+
+def _stencil(p, CH, d, outward, u_ext, v0, v1):
+    """stencil_in:  [c, u, v', i] = CH[c, row d-2-u-(v0+v'), col i+1+u]
+    stencil_out: [c, u, v', i] = CH[c, row d+2+u+(v0+v'), col i-1-u]
+    (zero outside the matrix: the buffers' padding rows and columns)"""
+    key = (outward, u_ext, v0, v1)
+    if key not in p["bases"]:
+        dev, WC, C0 = p["dev"], p["WC"], SW + 2
+        u = torch.arange(u_ext, device=dev)[:, None, None]
+        v = torch.arange(v0, v1, device=dev)[None, :, None]
+        i = p["ii"][None, None, :]
+        if outward:
+            p["bases"][key] = (RP + 2 + u + v) * WC + C0 + i - 1 - u
+        else:
+            p["bases"][key] = (RP - 2 - u - v) * WC + C0 + i + 1 + u
+    return CH.reshape(CH.shape[0], -1)[:, p["bases"][key] + d * p["WC"]]
+
+
+def _zeros(p, *shape):
+    return torch.zeros(shape, dtype=torch.float32, device=p["dev"])
+
+
+def _pad_rows(p, x, top, bottom):
+    return torch.cat([_zeros(p, top, x.shape[1]), x, _zeros(p, bottom, x.shape[1])], dim=0)
+
+
+def _masks(iu, iv, blg1):
+    """m[a, b] = iu[a] (u-side) x iv[b] (v-side) for the B-group cells."""
+    def mm(a, b):
+        return iu[a][:, :, None, :] * iv[b][:, None, :, :]
+    m00, m01, m10 = mm(0, 0), mm(0, 1), mm(1, 0)
+    m_sb = m00 + blg1 * (m01 + m10)
+    return m_sb, mm(1, 1), mm(1, 2), mm(2, 1), mm(2, 2)
+
+
+def inside(p, n, *, BCUT=SW):
+    """The inside scan over diagonals d = 1 .. n-1 (`dafs_tpu`'s
+    `inside_step`): returns (qb_mat, qm, qm1, QBL), the (Lp, Lp) matrices
+    and qb's diag-major buffer."""
+    plain_inputs(p)
+    NS, Lp, NROWS, WC = p["NS"], p["Lp"], p["NROWS"], p["WC"]
+    ii, sc_t, bsn, sc_pow = p["ii"], p["sc_t"], p["bsn"], p["sc_pow"]
+    T7f, Ti11f, Ti21af, Ti21bf, Ti22f = (p[k] for k in ("T7f", "Ti11f", "Ti21af", "Ti21bf", "Ti22f"))
+    TGENf, C23, blg1 = p["TGENf"], p["C23"], p["blg1"]
+    U1, SP1u, IND_U, BU_u, F1N_u = (p[k] for k in ("U1", "SP1u", "IND_U", "BU_u", "F1N_u"))
+    SCP, bs_seg, gate_u = p["SCP"], p["bs_seg"], p["gate_u"]
+
+    def row(B, d):
+        return _row(B, d, Lp)
 
     kk = ii[None, :]
-
-    # =========================== INSIDE ====================================
-    qb_mat, qm, qm1 = zeros(Lp, Lp), zeros(Lp, Lp), zeros(Lp, Lp)
-    qm1_prev = zeros(Lp)
-    QBL = torch.zeros((1, NROWS, WC), dtype=f32, device=dev)
+    qb_mat, qm, qm1 = _zeros(p, Lp, Lp), _zeros(p, Lp, Lp), _zeros(p, Lp, Lp)
+    qm1_prev = _zeros(p, Lp)
+    QBL = torch.zeros((1, NROWS, WC), dtype=torch.float32, device=p["dev"])
     # diagonals d >= n hold no cell (i >= 1, i + d <= n): the JAX version
     # scans them to a static length and writes zeros, which is skipped here
     for d in range(1, n):
         j_vec = ii + d
         cell_ok = (ii >= 1) & (j_vec <= n)
-        pair_ok = cell_ok & (d > TURN) & (row(APL, d) > 0)
+        pair_ok = cell_ok & (d > TURN) & (row(p["APL"], d) > 0)
 
-        hp = row(HPL, d) * sc_pow[d + 1]
+        hp = row(p["HPL"], d) * sc_pow[d + 1]
 
         y0 = PAD + d - SW
-        U2 = V2J[:, :, y0 : y0 + Lp]                     # (NS, SW, Lp)
-        SQ1 = SQ1J[:, :, y0 : y0 + Lp]
-        BU_v = BU_vJ[:, :, y0 : y0 + Lp]
-        F1N_v = F1N_vJ[:, :, y0 : y0 + Lp]
-        IND_V = IND_VJ[:, :, :, y0 : y0 + Lp]
-        OUTrow = row(OUT_ST, d).reshape(4, NS, 1, 1, Lp)
+        U2 = p["V2J"][:, :, y0 : y0 + Lp]                 # (NS, SW, Lp)
+        SQ1 = p["SQ1J"][:, :, y0 : y0 + Lp]
+        BU_v = p["BU_vJ"][:, :, y0 : y0 + Lp]
+        F1N_v = p["F1N_vJ"][:, :, y0 : y0 + Lp]
+        IND_V = p["IND_VJ"][:, :, :, y0 : y0 + Lp]
+        OUTrow = row(p["OUT_ST"], d).reshape(4, NS, 1, 1, Lp)
         # per-diagonal outer pair codes, (NS, 1, 1, Lp)
-        tp7 = row(TP7L, d)[:, None, None, :]
-        c175 = row(C175OL, d)[:, None, None, :]
-        c35 = row(C35OL, d)[:, None, None, :]
+        tp7 = row(p["TP7L"], d)[:, None, None, :]
+        c175 = row(p["C175_OUTL"], d)[:, None, None, :]
+        c35 = row(p["C35_OUTL"], d)[:, None, None, :]
 
-        interior = zeros(Lp)
+        interior = _zeros(p, Lp)
         for v0, v1, u_ext in STAIR:
             vb = v1 - v0
-            INst = stencil(IN_ST, d, False, u_ext, v0, v1).reshape(4, NS, u_ext, vb, Lp)
+            INst = _stencil(p, p["IN_ST"], d, False, u_ext, v0, v1).reshape(4, NS, u_ext, vb, Lp)
             OI = OUTrow * INst
             Tgen = TGENf[U1[:, :u_ext, None, :] * SW + U2[:, None, v0:v1, :]]
             f1_v = F1N_v[:, None, v0:v1, :]
@@ -577,8 +617,8 @@ def alifold_fast(planes, loop_tabs, spec_tabs, psc_fac, allow_pair,
             bu, bv1 = min(u_ext, BCUT), min(v1, BCUT)
             if bv1 > v0 and bu > 0:
                 bvb = bv1 - v0
-                TP2 = stencil(RT7L, d, False, bu, v0, bv1)   # inner types 0..6
-                m_sb, m11, m12, m21, m22 = masks(IND_U[:, :, :bu], IND_V[:, :, v0:bv1])
+                TP2 = _stencil(p, p["RT7L"], d, False, bu, v0, bv1)   # inner types 0..6
+                m_sb, m11, m12, m21, m22 = _masks(IND_U[:, :, :bu], IND_V[:, :, v0:bv1], blg1)
                 m35 = TP2 * 5 + SQ1[:, None, v0:bv1, :]
                 sp = SP1u[:, :bu, None, :]
                 Bv = (
@@ -589,43 +629,47 @@ def alifold_fast(planes, loop_tabs, spec_tabs, psc_fac, allow_pair,
                 )
                 K[:, :bu, :bvb] += Bv
             Kp = torch.prod(K, dim=0)                        # (u_ext, vb, Lp)
-            M2qb = stencil(QBL, d, False, u_ext, v0, v1)[0]
+            M2qb = _stencil(p, QBL, d, False, u_ext, v0, v1)[0]
             interior = interior + torch.einsum("uvi,uvi,uv->i", M2qb, Kp, SCP[:u_ext, v0:v1])
 
         # multiloop closing
-        qm_sh = zeros(Lp, Lp)
+        qm_sh = _zeros(p, Lp, Lp)
         qm_sh[: Lp - 1, 1:] = qm[1:, : Lp - 1]                # qm[i+1, k-1]
-        qm1_rows = pad_rows(qm1.T, 4, Lp + 4)[d + 3 : d + 3 + Lp]  # qm1[k, j-1]
+        qm1_rows = _pad_rows(p, qm1.T, 4, Lp + 4)[d + 3 : d + 3 + Lp]  # qm1[k, j-1]
         mlk = (kk >= ii[:, None] + 2) & (kk <= j_vec[:, None] - 1)
         mlsum = torch.sum(torch.where(mlk, qm_sh * qm1_rows, 0.0), dim=1)
-        ml = mlsum * row(MLCLOSEL, d) * sc_t * sc_t
+        ml = mlsum * row(p["MLCLOSEL"], d) * sc_t * sc_t
 
-        qb_new = torch.where(pair_ok, (hp + interior + ml) * row(PSCL, d), 0.0)
+        qb_new = torch.where(pair_ok, (hp + interior + ml) * row(p["PSCL"], d), 0.0)
 
         gate_j = torch.where(j_vec <= n, gate_u[j_vec.clamp(max=Lp - 1)], 0.0)
         qm1_new = torch.where(
-            cell_ok, qm1_prev * bsn * gate_j + qb_new * row(MLSTEML, d), 0.0
+            cell_ok, qm1_prev * bsn * gate_j + qb_new * row(p["MLSTEML"], d), 0.0
         )
         i_d = ii[: Lp - d]
         qm1[i_d, i_d + d] = qm1_new[: Lp - d]
 
-        pre = zeros(Lp, Lp)
+        pre = _zeros(p, Lp, Lp)
         pre[:, 1:] = bs_seg[:, : Lp - 1] + qm[:, : Lp - 1]
-        qm1_rows2 = pad_rows(qm1.T, 4, Lp + 4)[d + 4 : d + 4 + Lp]  # qm1[k, i+d]
+        qm1_rows2 = _pad_rows(p, qm1.T, 4, Lp + 4)[d + 4 : d + 4 + Lp]  # qm1[k, i+d]
         kmask = (kk >= ii[:, None]) & (kk <= j_vec[:, None])
         qm_new = torch.where(
             cell_ok, torch.sum(torch.where(kmask, pre * qm1_rows2, 0.0), dim=1), 0.0
         )
         qm[i_d, i_d + d] = qm_new[: Lp - d]
         qb_mat[i_d, i_d + d] = qb_new[: Lp - d]
-        QBL[0, d + RP, C0 : C0 + Lp] = qb_new
+        QBL[0, d + RP, SW + 2 : SW + 2 + Lp] = qb_new
         qm1_prev = qm1_new
+    return qb_mat, qm, qm1, QBL
 
-    # =========================== EXTERIOR ==================================
-    ext_m = P["EXT"]
-    qb_ext = qb_mat * ext_m
 
-    q1 = zeros(Lp)
+def exterior(p, n, qb_mat):
+    """The exterior scans (`dafs_tpu`'s `q1_step` and `qn_step`): returns
+    (q1, qn, Q), Q a 0-d tensor."""
+    Lp, ii, sc_t, gate_u = p["Lp"], p["ii"], p["sc_t"], p["gate_u"]
+    qb_ext = qb_mat * p["EXT"]
+
+    q1 = _zeros(p, Lp)
     q1[0] = 1.0
     for j in range(1, min(n, Lp - 2) + 1):
         stems = torch.sum(
@@ -633,54 +677,70 @@ def alifold_fast(planes, loop_tabs, spec_tabs, psc_fac, allow_pair,
         )
         q1[j] = q1[j - 1] * sc_t * gate_u[j] + stems
 
-    qn = zeros(Lp)
+    qn = _zeros(p, Lp)
     qn[min(n + 1, Lp - 1)] = 1.0
     for i in range(min(n, Lp - 2), 0, -1):
         stems = torch.sum(
             torch.where((ii >= i) & (ii <= n), qb_ext[i, :] * torch.roll(qn, -1), 0.0)
         )
         qn[i] = qn[i + 1] * sc_t * gate_u[i] + stems
-    Q = q1[min(n, Lp - 1)]
+    return q1, qn, q1[min(n, Lp - 1)]
 
-    # =========================== OUTSIDE ===================================
-    EXL = to_ldiag(ext_m)
-    qm_rows_big = pad_rows(qm, 4, Lp + 4)
-    bs_rows_big = pad_rows(bs_seg, 4, Lp + 4)
-    q1_big = torch.cat([zeros(4), q1, zeros(Lp + 4)])
-    qn_big = torch.cat([zeros(4), qn, zeros(Lp + 4)])
+
+def outside(p, n, QBL, qm, q1, qn, Q, *, BCUT=SW):
+    """The outside scan over diagonals d = n-1 .. 1 (`dafs_tpu`'s
+    `outside_step`) with the multiloop accumulators A1/A2: returns pout
+    (Lp, Lp)."""
+    plain_inputs(p)
+    NS, Lp, NROWS, WC = p["NS"], p["Lp"], p["NROWS"], p["WC"]
+    ii, sc_t = p["ii"], p["sc_t"]
+    T7f, Ti11f, Ti21af = p["T7f"], p["Ti11f"], p["Ti21af"]
+    Ti21b_of, Ti22_of = p["Ti21b_of"], p["Ti22_of"]
+    TGENf, C23, blg1 = p["TGENf"], p["C23"], p["blg1"]
+    U1o, SI1ou, IND_UO, BU_uo, F1N_uo = (p[k] for k in ("U1o", "SI1ou", "IND_UO", "BU_uo", "F1N_uo"))
+    SCP, bs_seg = p["SCP"], p["bs_seg"]
+    PSCL = p["PSCL"]
+
+    def row(B, d):
+        return _row(B, d, Lp)
+
+    qm_rows_big = _pad_rows(p, qm, 4, Lp + 4)
+    bs_rows_big = _pad_rows(p, bs_seg, 4, Lp + 4)
+    q1_big = torch.cat([_zeros(p, 4), q1, _zeros(p, Lp + 4)])
+    qn_big = torch.cat([_zeros(p, 4), qn, _zeros(p, Lp + 4)])
     # rows i-1 of qm^T / bs_seg^T, column-padded for the per-diagonal shift
-    qmT_sh_big = torch.cat([zeros(Lp, Lp), pad_rows(qm.T, 4, Lp + 4)[3 : 3 + Lp],
-                            zeros(Lp, Lp)], dim=1)
-    bsT_sh_big = torch.cat([zeros(Lp, Lp), pad_rows(bs_seg.T, 4, Lp + 4)[3 : 3 + Lp],
-                            zeros(Lp, Lp)], dim=1)
+    qmT_sh_big = torch.cat([_zeros(p, Lp, Lp), _pad_rows(p, qm.T, 4, Lp + 4)[3 : 3 + Lp],
+                            _zeros(p, Lp, Lp)], dim=1)
+    bsT_sh_big = torch.cat([_zeros(p, Lp, Lp), _pad_rows(p, bs_seg.T, 4, Lp + 4)[3 : 3 + Lp],
+                            _zeros(p, Lp, Lp)], dim=1)
     # outside A-group stencil channels: OUT planes (outer cells) + psc
-    OUT_PSC = torch.cat([OUT_ST, PSCL[None]], dim=0)
+    OUT_PSC = torch.cat([p["OUT_ST"], PSCL[None]], dim=0)
     ll = ii[None, :]
 
-    pout, A1, A2 = zeros(Lp, Lp), zeros(Lp, Lp), zeros(Lp, Lp)
-    CL = torch.zeros((1, NROWS, WC), dtype=f32, device=dev)
+    pout, A1, A2 = _zeros(p, Lp, Lp), _zeros(p, Lp, Lp), _zeros(p, Lp, Lp)
+    CL = torch.zeros((1, NROWS, WC), dtype=torch.float32, device=p["dev"])
     for d in range(n - 1, 0, -1):
         j_vec = ii + d
-        pair_ok = (ii >= 1) & (j_vec <= n) & (d > TURN) & (row(APL, d) > 0)
+        pair_ok = (ii >= 1) & (j_vec <= n) & (d > TURN) & (row(p["APL"], d) > 0)
 
-        w_ext = q1_big[3 : 3 + Lp] * qn_big[d + 5 : d + 5 + Lp] * row(EXL, d) / Q
+        w_ext = q1_big[3 : 3 + Lp] * qn_big[d + 5 : d + 5 + Lp] * row(p["EXTL"], d) / Q
 
         y0 = PAD + d
-        U2o = V2OJ[:, :, y0 : y0 + Lp]                   # a2s[j+v] - a2s[j]
-        SJ1o = SJ1OJ[:, :, y0 : y0 + Lp]                 # S5[s, j+1+v]
-        BU_vo = BU_vOJ[:, :, y0 : y0 + Lp]
-        F1N_vo = F1N_vOJ[:, :, y0 : y0 + Lp]
-        IND_VO = IND_VOJ[:, :, :, y0 : y0 + Lp]
-        INrow = row(IN_ST, d).reshape(4, NS, 1, 1, Lp)
+        U2o = p["V2OJ"][:, :, y0 : y0 + Lp]               # a2s[j+v] - a2s[j]
+        SJ1o = p["SJ1OJ"][:, :, y0 : y0 + Lp]             # S5[s, j+1+v]
+        BU_vo = p["BU_vOJ"][:, :, y0 : y0 + Lp]
+        F1N_vo = p["F1N_vOJ"][:, :, y0 : y0 + Lp]
+        IND_VO = p["IND_VOJ"][:, :, :, y0 : y0 + Lp]
+        INrow = row(p["IN_ST"], d).reshape(4, NS, 1, 1, Lp)
         # per-diagonal inner pair codes (this diagonal holds the inner pair)
-        rt7 = row(RT7L, d)[:, None, None, :]
-        c175i = row(C175IL, d)[:, None, None, :]
-        c35i = row(C35IL, d)[:, None, None, :]
+        rt7 = row(p["RT7L"], d)[:, None, None, :]
+        c175i = row(p["C175_INL"], d)[:, None, None, :]
+        c35i = row(p["C35_INL"], d)[:, None, None, :]
 
-        w_int = zeros(Lp)
+        w_int = _zeros(p, Lp)
         for v0, v1, u_ext in STAIR:
             vb = v1 - v0
-            OUTst_all = stencil(OUT_PSC, d, True, u_ext, v0, v1)
+            OUTst_all = _stencil(p, OUT_PSC, d, True, u_ext, v0, v1)
             OI = INrow * OUTst_all[: 4 * NS].reshape(4, NS, u_ext, vb, Lp)
             PSCst = OUTst_all[4 * NS]
             Tgen = TGENf[U1o[:, :u_ext, None, :] * SW + U2o[:, None, v0:v1, :]]
@@ -704,8 +764,8 @@ def alifold_fast(planes, loop_tabs, spec_tabs, psc_fac, allow_pair,
             bu, bv1 = min(u_ext, BCUT), min(v1, BCUT)
             if bv1 > v0 and bu > 0:
                 bvb = bv1 - v0
-                TPo = stencil(TP7L, d, True, bu, v0, bv1)    # outer types 0..6
-                m_sb, m11, m12, m21, m22 = masks(IND_UO[:, :, :bu], IND_VO[:, :, v0:bv1])
+                TPo = _stencil(p, p["TP7L"], d, True, bu, v0, bv1)    # outer types 0..6
+                m_sb, m11, m12, m21, m22 = _masks(IND_UO[:, :, :bu], IND_VO[:, :, v0:bv1], blg1)
                 si = SI1ou[:, :bu, None, :]
                 c_out = TPo * 25 + si * 5 + SJ1o[:, None, v0:bv1, :]   # outer c175
                 Bv = (
@@ -717,17 +777,17 @@ def alifold_fast(planes, loop_tabs, spec_tabs, psc_fac, allow_pair,
                 )
                 K[:, :bu, :bvb] += Bv
             Kp = torch.prod(K, dim=0) * PSCst
-            M2C = stencil(CL, d, True, u_ext, v0, v1)[0]
+            M2C = _stencil(p, CL, d, True, u_ext, v0, v1)[0]
             w_int = w_int + torch.einsum("uvi,uvi,uv->i", M2C, Kp, SCP[:u_ext, v0:v1])
 
         # multiloop outside
-        qm_r = zeros(Lp, Lp)
+        qm_r = _zeros(p, Lp, Lp)
         qm_r[:, 1:] = qm_rows_big[d + 5 : d + 5 + Lp, : Lp - 1]   # qm[j+1, l-1]
-        e_r = zeros(Lp, Lp)
+        e_r = _zeros(p, Lp, Lp)
         e_r[:, 1:] = bs_rows_big[d + 5 : d + 5 + Lp, : Lp - 1]    # bs_seg[j+1, l-1]
         lmask = (ll >= j_vec[:, None] + 1) & (ll <= n)
         mlsum = torch.sum(torch.where(lmask, (A1 + A2) * qm_r + A1 * e_r, 0.0), dim=1)
-        w_ml = mlsum * row(MLSTEML, d)
+        w_ml = mlsum * row(p["MLSTEML"], d)
 
         qb_vec = row(QBL[0], d)
         pnew = torch.where(pair_ok, qb_vec * (w_ext + w_int + w_ml), 0.0)
@@ -736,8 +796,8 @@ def alifold_fast(planes, loop_tabs, spec_tabs, psc_fac, allow_pair,
 
         # accumulator updates for this diagonal's outer pairs
         qb_safe_vec = torch.where(qb_vec > 0, qb_vec, 1.0)
-        Cvec_i = pnew / qb_safe_vec * row(PSCL, d) * row(MLCLOSEL, d) * sc_t * sc_t
-        Cvec_big = torch.cat([zeros(Lp + 4), Cvec_i, zeros(Lp + 4)])
+        Cvec_i = pnew / qb_safe_vec * row(PSCL, d) * row(p["MLCLOSEL"], d) * sc_t * sc_t
+        Cvec_big = torch.cat([_zeros(p, Lp + 4), Cvec_i, _zeros(p, Lp + 4)])
         Cvec_ld = Cvec_big[Lp + 4 - d : Lp + 4 - d + Lp]          # Cvec_i[l - d]
         U1qm = qmT_sh_big[:, Lp + 1 - d : Lp + 1 - d + Lp]        # qm[l-d+1, i-1]
         U2bs = bsT_sh_big[:, Lp + 1 - d : Lp + 1 - d + Lp]        # bs_seg[l-d+1, i-1]
@@ -746,5 +806,23 @@ def alifold_fast(planes, loop_tabs, spec_tabs, psc_fac, allow_pair,
         A1 = A1 + torch.where(iok, Cvec_ld[None, :] * U1qm, 0.0)
         A2 = A2 + torch.where(iok, Cvec_ld[None, :] * U2bs, 0.0)
 
-        CL[0, d + RP, C0 : C0 + Lp] = pnew / qb_safe_vec
-    return pout, Q
+        CL[0, d + RP, SW + 2 : SW + 2 + Lp] = pnew / qb_safe_vec
+    return pout
+
+
+def inside_outside(p, n, *, BCUT=SW):
+    """The plain PyTorch inside, exterior and outside on a `prepare`d
+    consensus: returns (pout (Lp, Lp), Q (0-d)).  Runs on any device; the
+    consensus takes it for CPU tensors (`ops/alifold.py`), and the CUDA
+    kernels of `ops/alifold_cuda.py` are held to it on the card.
+
+    BCUT: host-proven support bound for the small-loop-size terms — every
+    alignment window of BCUT or more columns holds >= 4 non-gap positions
+    in every sequence, so the B-group masks (loop sizes <= 2) and the
+    separable A-category indicators (sizes <= 3) vanish at offsets >= BCUT.
+    The B group is evaluated on the (u, v < BCUT) corner only; the skipped
+    terms are exact zeros, so results equal the full-block evaluation bit
+    for bit."""
+    qb_mat, qm, _, QBL = inside(p, n, BCUT=BCUT)
+    q1, qn, Q = exterior(p, n, qb_mat)
+    return outside(p, n, QBL, qm, q1, qn, Q, BCUT=BCUT), Q

@@ -14,7 +14,8 @@ contracting them into fused multiply-adds anywhere in the library.
 
 Every exported launcher takes the stream last and returns
 `cudaGetLastError()` after its launch; `CudaKernel` raises on a non-zero
-return and counts the launches it made.
+return and counts the launches it made (a launcher that loops over a
+scan's steps in C launches once a step, and its caller says how many).
 """
 
 from __future__ import annotations
@@ -108,7 +109,7 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, launches: int = 1) -> None:
         if self._fn is None:
             lib = self.loader()
             fn = getattr(lib, self.symbol)
@@ -122,7 +123,7 @@ class CudaKernel:
                 f"{self.symbol}: CUDA error {err}: "
                 f"{lib.dafs_error_string(err).decode()}"
             )
-        self.launches += 1
+        self.launches += launches
 
 
 def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

@@ -10,15 +10,17 @@ the JAX-importing tests/conftest.py is not loaded):
 """
 
 import ctypes
+import os
 
 import numpy as np
 import pytest
 import torch
 
 from dafs_tpu_torch.ops import (
-    alifold, contrafold, cuda_lib, nussinov, nussinov_cuda, nw, nw_cuda, paircrf, pairhmm,
-    pairhmm_cuda,
+    alifold, alifold_cuda, contrafold, cuda_lib, nussinov, nussinov_cuda, nw, nw_cuda, paircrf,
+    pairhmm, pairhmm_cuda,
 )
+from dafs_tpu_torch.ops import alifold_kernel as ak
 
 pytestmark = pytest.mark.cuda
 
@@ -47,6 +49,7 @@ def _decoder_args(dev, rng, L=64):
 @pytest.mark.parametrize("module,attr", [
     (pairhmm_cuda, "FORWARD"), (pairhmm_cuda, "BACKWARD"), (pairhmm_cuda, "POSTERIOR"),
     (nussinov_cuda, "DECODE"), (nw_cuda, "DECODE"),
+    (alifold_cuda, "INSIDE"), (alifold_cuda, "EXTERIOR"), (alifold_cuda, "OUTSIDE"),
 ])
 def test_broken_library_raises(module, attr, dev, monkeypatch):
     """A CUDA tensor goes to the kernel or raises: a wrapper whose library
@@ -64,8 +67,10 @@ def test_broken_library_raises(module, attr, dev, monkeypatch):
             run(*_pairhmm_args(dev, rng), pairhmm.tables(dev))
         elif module is nussinov_cuda:
             nussinov.decode(sm, lens)
-        else:
+        elif module is nw_cuda:
             nw.decode(*nw_args)
+        else:
+            alifold.Alifold(0.0).consensus(["GGGC-AAAGCCC", "GG-CAAA-GCCC"], dev)
     assert broken.launches == 0
 
 
@@ -125,6 +130,117 @@ def test_consensus_matches_cpu(seqs, dev):
     np.testing.assert_allclose(got.consensus(seqs, dev), want.consensus(seqs, "cpu"),
                                rtol=2e-4, atol=1e-6)
     assert [c["attempts"] for c in got.calls] == [c["attempts"] for c in want.calls]
+
+
+def _snapshot_rows(name):
+    with open(os.path.join(os.path.dirname(__file__), "snapshots", name)) as fh:
+        return fh.read().splitlines()[4::2]
+
+
+def _mutated(rows, k, rng):
+    """k rows from `rows`, cycled, with a tenth of their bases changed
+    (gaps kept): an alignment of k sequences at the rows' width."""
+    out = []
+    for r in range(k):
+        row = np.array(list(rows[r % len(rows)]))
+        hit = (row != "-") & (rng.random(len(row)) < 0.1)
+        row[hit] = rng.choice(list("ACGU"), size=int(hit.sum()))
+        out.append("".join(row))
+    return out
+
+
+def _consensus_cases():
+    rng = np.random.default_rng(10)
+    r5, r17 = _snapshot_rows("rf00005_default_tpu.txt"), _snapshot_rows("rf00017_default_tpu.txt")
+    return {
+        "RF00005 final": (r5, True, None, None),
+        "RF00005 final, Vienna": (r5, False, None, None),
+        "RF00005 final, BCUT 8": (r5, True, None, 8),
+        "RF00017 final": (r17, True, None, None),
+        "NS 2": (r5[:2], True, None, None),
+        "NS 3, constrained": (r5[3:6], True, "." * 10 + "((((x" + "." * 60 + "))))" + "." * 6,
+                              None),
+        "NS 50": (_mutated(r5, 50, rng), True, None, None),
+        "NS 50, Vienna, BCUT 31": (_mutated(r5, 50, rng), False, None, 31),
+    }
+
+
+@pytest.mark.parametrize("case", [
+    "RF00005 final", "RF00005 final, Vienna", "RF00005 final, BCUT 8", "RF00017 final", "NS 2",
+    "NS 3, constrained", "NS 50", "NS 50, Vienna, BCUT 31",
+])
+def test_consensus_kernels_match_plain(case, dev):
+    """The consensus kernels against the plain loops on the card, through
+    the pf-scale ladder from its first scale: pout within the consensus
+    tolerance (rtol 2e-4, atol 1e-6) and Q within rtol 2e-4, the same
+    attempts and final scale; two runs of the kernels bit-equal."""
+    seqs, bl, con, bcut = _consensus_cases()[case]
+    x = alifold._inputs(seqs, bl, con)
+    n = x["n"]
+    BCUT = alifold._bcut(x["S"], n) if bcut is None else bcut
+    args = alifold.device_args(x, dev)
+    want = alifold.partition(args, n, x["bsn0"], alifold.SC0, BCUT, ak.inside_outside)
+    got = alifold.partition(args, n, x["bsn0"], alifold.SC0, BCUT, alifold_cuda.inside_outside)
+    np.testing.assert_allclose(got[0], want[0], rtol=2e-4, atol=1e-6)
+    np.testing.assert_allclose(got[1], want[1], rtol=2e-4, atol=0)
+    assert got[2:] == want[2:]
+    p = ak.prepare(*args, n, got[2], x["bsn0"])
+    before = alifold_cuda.INSIDE.launches
+    first = [t.clone() for t in alifold_cuda.inside_outside(p, n, BCUT=BCUT)]
+    assert alifold_cuda.INSIDE.launches - before == n - 1
+    _equal(alifold_cuda.inside_outside(p, n, BCUT=BCUT), first)
+
+
+@pytest.mark.parametrize("case", ["RF00005 final", "NS 3, constrained", "NS 50"])
+def test_consensus_ladder_from_an_overflowing_scale(case, dev):
+    """From a scale at which Q overflows float32, the kernels and the plain
+    loops take the ladder through the same attempts: each attempt's scale,
+    and whether Q and pout are finite, are the same."""
+    seqs, bl, con, bcut = _consensus_cases()[case]
+    x = alifold._inputs(seqs, bl, con)
+    n = x["n"]
+    BCUT = alifold._bcut(x["S"], n) if bcut is None else bcut
+    args = alifold.device_args(x, dev)
+    _, Q0, sc0, _ = alifold.partition(args, n, x["bsn0"], alifold.SC0, BCUT, ak.inside_outside)
+    start = np.float32(sc0 * np.float32((1e39 / Q0) ** (1.0 / n)))   # Q scales as sc ** n
+    runs = []
+    for loops in (ak.inside_outside, alifold_cuda.inside_outside):
+        trace = []
+
+        def run(p, n, BCUT, loops=loops, trace=trace):
+            pout, Q = loops(p, n, BCUT=BCUT)
+            trace.append((float(p["sc_t"]), bool(torch.isfinite(Q)),
+                          bool(torch.isfinite(pout).all())))
+            return pout, Q
+
+        runs.append((alifold.partition(args, n, x["bsn0"], start, BCUT, run), trace))
+    (want, plain), (got, kern) = runs
+    assert not plain[0][1] and len(plain) > 1 and kern == plain
+    assert got[2:] == want[2:]
+    np.testing.assert_allclose(got[1], want[1], rtol=2e-4, atol=0)
+    np.testing.assert_allclose(got[0], want[0], rtol=2e-4, atol=1e-6)
+
+
+def test_alifold_wrapper_rejects_bad_inputs(dev):
+    x = alifold._inputs(["GGGC-AAAGCCC", "GG-CAAA-GCCC"], True, None)
+    args = alifold.device_args(x, "cpu")
+    p = ak.prepare(*args, x["n"], np.float32(alifold.SC0), x["bsn0"])
+    with pytest.raises(ValueError, match="CUDA"):
+        alifold_cuda.inside_outside(p, x["n"])
+    p = ak.prepare(*alifold.device_args(x, dev), x["n"], np.float32(alifold.SC0), x["bsn0"])
+    pk = alifold_cuda.pack(p, x["n"], 31)
+    bad = dict(pk, tensors=dict(pk["tensors"], hp=pk["tensors"]["hp"].double()))
+    with pytest.raises(ValueError, match="float32"):
+        alifold_cuda.launch_args(bad)
+    bad = dict(pk, tensors=dict(pk["tensors"], a2sb=pk["tensors"]["a2sb"].int()))
+    with pytest.raises(ValueError, match="int64"):
+        alifold_cuda.launch_args(bad)
+    bad = dict(pk, tensors=dict(pk["tensors"], pout=pk["tensors"]["pout"][:-1]))
+    with pytest.raises(ValueError, match="pout"):
+        alifold_cuda.launch_args(bad)
+    bad = dict(pk, tensors=dict(pk["tensors"], ext=pk["tensors"]["ext"].t()))
+    with pytest.raises(ValueError, match="contiguous"):
+        alifold_cuda.launch_args(bad)
 
 
 def _rna(rng, lens):
