@@ -44,13 +44,16 @@
    shape's first case, the call's host prep and the plain loops' device
    kernels (torch.profiler), then each kernel against its plain step (qb,
    q1, qn and Q within rtol 2e-4 and a millionth of their largest value;
-   pout as above), two runs bit-equal, its CUDA-event ms beside the plain
-   step's, its bound (operations and bytes of these inputs) and its
-   dependency floor (as many empty launches, one after another).
+   pout as above), two runs bit-equal, one launch, its CUDA-event ms
+   beside the plain step's, its bound (operations and bytes of these
+   inputs) and its floor: the n - 1 grid barriers of one cooperative
+   launch (`barrier_probe`), and beside it the floor of a launch a diagonal (as
+   many empty launches, one after another); the pair-allowed cell count
+   and each scan's grid.
    In every run of the slice, consensus, paths, solvers, options and mesh
    phases the consensus kernels must have launched exactly as often as the
-   run's alifold calls need (n - 1 inside and outside launches and one
-   exterior launch a ladder attempt).
+   run's alifold calls need (one inside, one exterior and one outside
+   launch a ladder attempt).
 5. Paths phase: the slice's other configurations through the same entry
    point, each with the launch counts set to 0 just before it and read just
    after: path (a), `align_model="CONTRAlign", fold_model="CONTRAfold"`
@@ -75,7 +78,10 @@
    bit-equal to its plain version, with its time and bound; once at the
    ceiling of 4096, timed and checked well formed (finite posteriors, a
    nested structure, an increasing alignment); above it, the error must
-   name the ceiling.
+   name the ceiling.  Then the consensus kernels past RF00017's widths
+   (`consensus_lengths`): at n 1056, NS 2 and 10, against the plain loops
+   on the card with the ladder and determinism checks of the consensus
+   phase; at n 2048 (NS 10) well formed and bit-equal across two runs.
 7. Solvers phase (last): the host merge solvers, counts set to 0 before
    each run: (c) `--ipknot` and (d) `-m 0` on RF00005 with the options the
    CLI builds, each tree topology held to `dafs_tpu`'s CPU output
@@ -785,7 +791,100 @@ def length_phase(dev):
             raise AssertionError(f"{label} above the ceiling ran")
     for name, k in long_kernels().items():
         rows[name]["launches_length_phase"] = k.launches
+    t0 = time.perf_counter()
+    consensus_lengths(dev)
+    print(f"length phase: the consensus rows took {time.perf_counter() - t0:.1f}s", flush=True)
     return rows
+
+
+# (NS, n, held to the plain loops) of `consensus_lengths`
+LONG_CONSENSUS = ((2, 1056, True), (10, 1056, True), (10, 2048, False))
+
+
+def stable_scale(args, n, bsn0, BCUT):
+    """A per-column scale at which Q lies near 1, found with the kernels (Q
+    scales as sc ** n).  Past n of about 520 one step of the pf-scale
+    ladder (0.8 or 1.25 a column) moves Q by more than the ladder's window
+    of 1e-25 to 1e25, so a long alignment starts from here."""
+    from dafs_tpu_torch.ops import alifold, alifold_cuda
+    from dafs_tpu_torch.ops import alifold_kernel as ak
+
+    sc = np.float32(alifold.SC0)
+    for _ in range(40):
+        _, Q = alifold_cuda.inside_outside(ak.prepare(*args, n, sc, bsn0), n, BCUT=BCUT)
+        q = float(Q)
+        if np.isfinite(q) and 1e-5 < q < 1e5:
+            return sc
+        if np.isfinite(q) and q > 1e-30:
+            sc = np.float32(sc * (1.0 / q) ** (1.0 / n))
+        else:
+            sc = np.float32(sc * 10.0 ** ((-30.0 if not np.isfinite(q) else 30.0) / n))
+    raise AssertionError(f"consensus n {n}: no scale with Q near 1")
+
+
+def consensus_lengths(dev):
+    """The consensus kernels past RF00017's widths, on RF00017's TPU rows
+    repeated side by side and cut to n columns.  At n 1056 (NS 2 and 10):
+    from a scale with Q near 1 (`stable_scale`), the ladder under the plain
+    loops on the card and under the kernels (the same attempts and
+    readings, pout within rtol 2e-4 / atol 1e-6, Q within rtol 2e-4); one
+    attempt at a scale where Q overflows, read alike; two runs bit-equal.
+    At n 2048 (NS 10) only well formed: Q finite, pout in [0, 1 + 2e-4]
+    (the consensus's rtol; the consensus clips to [0, 1]), two runs
+    bit-equal."""
+    import torch
+
+    from dafs_tpu_torch.ops import alifold, alifold_cuda
+    from dafs_tpu_torch.ops import alifold_kernel as ak
+
+    rows17 = read_snapshot("rf00017_default_tpu.txt")[3]
+    for NS, n, plain in LONG_CONSENSUS:
+        t0 = time.perf_counter()
+        seqs = [(r * (n // len(r) + 1))[:n] for r in rows17[:NS]]
+        x = alifold._inputs(seqs, True, None)
+        BCUT = alifold._bcut(x["S"], n)
+        args = alifold.device_args(x, dev)
+        bsn0 = x["bsn0"]
+        sc = stable_scale(args, n, bsn0, BCUT)
+        tr_k = []
+        got = alifold.partition(args, n, bsn0, sc, BCUT, traced(alifold_cuda.call_loops(), tr_k))
+        p = ak.prepare(*args, n, got[2], bsn0)
+        first = [t.clone() for t in alifold_cuda.inside_outside(p, n, BCUT=BCUT)]
+        exact = all(torch.equal(a, b)
+                    for a, b in zip(first, alifold_cuda.inside_outside(p, n, BCUT=BCUT)))
+        ms = cuda_ms(lambda: alifold_cuda.inside_outside(p, n, BCUT=BCUT), 2)
+        npairs = int(alifold_cuda.pair_lists(p["APL"], n)[0].numel())
+        head = (f"length consensus (NS, n) = ({NS}, {n}) BCUT {BCUT}, {npairs} pair-allowed "
+                f"cells: kernels {ms:.4f} ms a call; ladder from sc {float(sc)!r}: "
+                f"{len(tr_k)} attempt(s), Q {got[1]!r}; two runs bit-equal={exact}")
+        if plain:
+            tr_p = []
+            t1 = time.perf_counter()
+            want = alifold.partition(args, n, bsn0, sc, BCUT, traced(ak.inside_outside, tr_p))
+            plain_s = time.perf_counter() - t1
+            err = float(np.abs(got[0].astype(np.float64) - want[0]).max())
+            ok = (consensus_agree(got[0], want[0], "pout") and consensus_agree(got[1], want[1], "Q")
+                  and got[2:] == want[2:] and ladder_steps(tr_k) == ladder_steps(tr_p))
+            sc_over = np.float32(got[2] * np.float32((1e39 / got[1]) ** (1.0 / n)))
+            po = ak.prepare(*args, n, sc_over, bsn0)
+            read = [(bool(torch.isfinite(Q)), bool(torch.isfinite(pout).all()))
+                    for pout, Q in (alifold_cuda.inside_outside(po, n, BCUT=BCUT),
+                                    ak.inside_outside(po, n, BCUT=BCUT))]
+            ok = ok and read[0] == read[1] and not read[0][0]
+            print(f"{head}; plain loops {plain_s:.1f} s, Q {want[1]!r}, pout max_abs_err "
+                  f"{err!r}, within rtol 2e-4 (atol 1e-6 pout, 0 Q) with the same attempts: "
+                  f"{ok}; at sc {float(sc_over)!r} (Q finite, pout finite) kernels "
+                  f"{read[0]} plain {read[1]} ({time.perf_counter() - t0:.1f}s)", flush=True)
+        else:
+            pout, Q = first
+            lo, hi = float(pout.min()), float(pout.max())
+            ok = bool(torch.isfinite(Q)) and bool(torch.isfinite(pout).all()) and lo >= 0.0 \
+                and hi <= 1.0 + 2e-4
+            print(f"{head}; pout in [{lo!r}, {hi!r}]; well formed: {ok} "
+                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        if not (ok and exact):
+            raise AssertionError(f"consensus (NS, n) = ({NS}, {n}): not well formed, not "
+                                 "bit-equal across runs or unlike the plain loops")
 
 
 # ------------------------------------------------------------------ slice --
@@ -904,9 +1003,9 @@ def slice_phase(dev):
 
 # -------------------------------------------------------------- consensus --
 # The RNAalifold consensus's CUDA kernels (`csrc/alifold.cu`): inside and
-# outside a launch a diagonal, exterior once a call.  Each alifold call of a
-# run launches inside and outside n - 1 times an attempt of its pf-scale
-# ladder and exterior once an attempt.
+# outside one cooperative launch a call each (a grid barrier between the
+# n - 1 diagonals), exterior one launch.  Each alifold call of a run
+# launches each of the three once an attempt of its pf-scale ladder.
 
 ALIFOLD = {
     "alifold_inside": ("INSIDE", "dafs_tpu/ops/alifold_kernel.py:938"),
@@ -927,15 +1026,16 @@ def alifold_kernels():
 
 def check_consensus(label, calls, counts):
     """The consensus kernels ran for the run's alifold calls, and only as
-    often as those calls need: n - 1 inside and outside launches and one
-    exterior launch an attempt."""
+    often as those calls need: one inside, one exterior and one outside
+    launch an attempt (the diagonals, n - 1 a scan, are grid barriers
+    inside a launch)."""
     ali = [c for c in calls if c["route"] == "alifold"]
-    steps = sum(c["attempts"] * (c["n"] - 1) for c in ali)
-    want = {"alifold_inside": steps, "alifold_exterior": sum(c["attempts"] for c in ali),
-            "alifold_outside": steps}
+    attempts = sum(c["attempts"] for c in ali)
+    want = {name: attempts for name in ALIFOLD}
     got = {name: counts[name] for name in ALIFOLD}
+    steps = sum(c["attempts"] * (c["n"] - 1) for c in ali)
     print(f"{label}: consensus kernels {got} for {len(ali)} alifold calls "
-          f"({sum(c['attempts'] for c in ali)} ladder attempts)", flush=True)
+          f"({attempts} ladder attempts; {steps} diagonals a scan, summed over them)", flush=True)
     if got != want:
         raise AssertionError(f"{label}: consensus launches {got}, the alifold calls need {want}")
 
@@ -1084,7 +1184,7 @@ def consensus_case(dev, seqs, bl, con, bcut, sc0):
     want_p, want_q, sc_p, att_p = alifold.partition(args, n, x["bsn0"], sc0, BCUT,
                                                     traced(ak.inside_outside, tr_p))
     got_p, got_q, sc_k, att_k = alifold.partition(args, n, x["bsn0"], sc0, BCUT,
-                                                  traced(alifold_cuda.inside_outside, tr_k))
+                                                  traced(alifold_cuda.call_loops(), tr_k))
     err = float(np.abs(got_p.astype(np.float64) - want_p).max())
     ok = (consensus_agree(got_p, want_p, "pout") and consensus_agree(got_q, want_q, "Q")
           and (att_k, sc_k) == (att_p, sc_p) and ladder_steps(tr_k) == ladder_steps(tr_p))
@@ -1193,45 +1293,63 @@ def consensus_timing(dev, label, seqs, bl, x, BCUT, args, sc, rows):
     pk = alifold_cuda.pack(p, n, BCUT)
     la = alifold_cuda.launch_args(pk)
     t = pk["tensors"]
-    # (run, its outputs, the plain step's, each output's tolerance kind, launches)
+    npairs = int(t["pairs"].numel())
+    grids = (alifold_cuda.grid(pk, la), alifold_cuda.grid(pk, la, outside_scan=True))
+    print(f"consensus {label}: {npairs} pair-allowed cells of {n * (n - 1) // 2} over "
+          f"{n - 1} diagonals; grids (CTAs of 256 threads) inside {grids[0]}, outside "
+          f"{grids[1]}", flush=True)
+    # (run, its outputs, the plain step's, each output's tolerance kind,
+    # diagonals); every run is one launch
     runs = {"alifold_inside": (lambda: alifold_cuda.inside(pk, la), lambda: (t["qbl"],),
                                (QBL[0],), ("qb",), n - 1),
             "alifold_exterior": (lambda: alifold_cuda.exterior(pk, la),
                                  lambda: (t["q1"], t["qn"], t["q"].reshape(())), (q1, qn, Q),
-                                 ("q1", "qn", "Q"), 1),
+                                 ("q1", "qn", "Q"), None),
             "alifold_outside": (lambda: alifold_cuda.outside(pk, la), lambda: (t["pout"],),
                                 (out["o"],), ("pout",), n - 1)}
     work = alifold_work(x, NS, BCUT, ak.SW * ak.SW + 2 * ak.SW + 4)
     reps = 5 if n < 200 else 3
     for name, (run, got, want, kinds, steps) in runs.items():
+        kernel = alifold_kernels()[name]
+        before = kernel.launches
         run()
         first = [g.clone() for g in got()]
+        launched = kernel.launches - before
         run()
         torch.cuda.synchronize()
         exact = all(torch.equal(a, b) for a, b in zip(first, got()))
         err = max(max_abs(g, w) for g, w in zip(got(), want))
         ok = all(consensus_agree(g, w, k) for g, w, k in zip(got(), want, kinds))
         ms = cuda_ms(run, reps)
-        floor_ms = cuda_ms(lambda: alifold_cuda.floor_probe(dev, steps), reps)
+        # the floors: one launch's grid barriers (n - 1), and the chain
+        # of a launch a diagonal (as many empty launches)
+        launch_floor_ms = cuda_ms(lambda: alifold_cuda.floor_probe(dev, steps or 1), reps)
+        floor_ms = (cuda_ms(lambda: alifold_cuda.barrier_probe(pk, la, steps), reps)
+                    if steps else launch_floor_ms)
         bound_ms, bound_by, bound_kind = bound(*work[name])
         print(f"kernel {name} {label} (NS, n, Lp) = ({NS}, {n}, {x['L'] + 2}) BCUT {BCUT}: "
               f"two runs bit-equal={exact} max_abs_err={err!r} within tolerance "
               f"({', '.join(kinds)})={ok} kernel_ms={ms:.4f} plain_ms={plain_ms[name]:.4f} "
-              f"launches={steps}; floor ({steps} empty launches) {floor_ms:.4f} ms", flush=True)
+              f"launches={launched} diagonals={steps}; floor {floor_ms:.4f} ms "
+              f"({'%d grid barriers in one launch' % steps if steps else 'one empty launch'}), "
+              f"{steps or 1} empty launches {launch_floor_ms:.4f} ms", flush=True)
         print(f"  bound {bound_ms:.6f} ms ({bound_by}; {work[name][0]:.4g} operations, "
               f"{work[name][1]:.4g} bytes); kernel at {bound_ms / ms:.2e} of it", flush=True)
-        if not (exact and ok):
-            raise AssertionError(f"{name} {label}: not bit-equal across runs or outside the "
-                                 "tolerance of the plain step")
+        if not (exact and ok and launched == 1):
+            raise AssertionError(f"{name} {label}: not bit-equal across runs, outside the "
+                                 f"tolerance of the plain step, or {launched} launches")
         rows[name] = dict(name=name, route="cuda", source="dafs_tpu_torch/csrc/alifold.cu",
                           replaces=ALIFOLD[name][1], max_abs_err=err, ms=ms,
                           plain_ms=plain_ms[name], bound_ms=bound_ms, bound_by=bound_by,
                           bound_kind=bound_kind, library_ms=None, floor_ms=floor_ms,
+                          launch_floor_ms=launch_floor_ms, diagonals=steps,
                           launched_by="alifold_cuda.inside_outside")
     total = cuda_ms(lambda: alifold_cuda.inside_outside(p, n, BCUT=BCUT), reps)
+    barriers = cuda_ms(lambda: alifold_cuda.barrier_probe(pk, la, 2 * (n - 1)), reps)
     floor = cuda_ms(lambda: alifold_cuda.floor_probe(dev, 2 * (n - 1) + 1), reps)
     print(f"consensus {label}: the three kernels {total:.4f} ms a call (pack and launches), "
-          f"plain {sum(plain_ms.values()):.1f} ms; floor ({2 * (n - 1) + 1} empty launches) "
+          f"plain {sum(plain_ms.values()):.1f} ms; floor ({2 * (n - 1)} grid barriers) "
+          f"{barriers:.4f} ms; a launch a diagonal ({2 * (n - 1) + 1} empty launches) "
           f"{floor:.4f} ms", flush=True)
     return rows
 

@@ -251,7 +251,8 @@ def device_args(x: dict, dev) -> tuple:
 
 def partition(args: tuple, n: int, bsn0, sc0, BCUT: int, loops):
     """The pf-scale retry ladder: `loops` (the CUDA kernels'
-    `alifold_cuda.inside_outside` or the plain `alifold_kernel.inside_outside`)
+    `alifold_cuda.inside_outside` or a call's `alifold_cuda.call_loops()`, or
+    the plain `alifold_kernel.inside_outside`)
     on `prepare(*args, n, sc, bsn0)` from the per-column scale sc0, scaled
     by 0.8 while Q overflows (or is not finite) and by 1.25 while it
     underflows, at most 24 attempts.  Returns (pout as numpy (Lp, Lp), Q,
@@ -353,7 +354,7 @@ class Alifold:
             BCUT = max(BCUT, min(ak.SW, bcut))
 
         dev = torch.device(device)
-        loops = alifold_cuda.inside_outside if dev.type == "cuda" else ak.inside_outside
+        loops = alifold_cuda.call_loops() if dev.type == "cuda" else ak.inside_outside
         key = (nseq, L)
         args = device_args(x, dev)
         t_prep = time.perf_counter() - t0
@@ -369,3 +370,12 @@ class Alifold:
                                prep_seconds=t_prep))
         return pm
 
+
+def consensus_bp(seqs: list[str], th: float, bl: bool = True, constraint: str | None = None,
+                 device="cuda") -> np.ndarray:
+    """(L, L) upper-triangular consensus pair probabilities of the gapped
+    strings `seqs` (entries > th), as `dafs_tpu.ops.alifold.consensus_bp`
+    returns them: `Alifold(th, bl).consensus(seqs, device, constraint)`.
+    Each call starts the pf-scale ladder cold, as a fresh `dafs_tpu`
+    process does; only the fast path exists here."""
+    return Alifold(th, bl).consensus(seqs, device, constraint)

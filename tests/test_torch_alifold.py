@@ -59,6 +59,12 @@ RF00017_GROUPS = [
      "X01055-1/1-297", "Z30973-1/7231-6935"],
 ]
 
+# two groups of RF00005's TPU run, (NS, n) = (3, 83) and (3, 75)
+RF00005_GROUPS = [
+    ["J01390-1/6861-6932", "J05395-1/2325-2252", "K00228-1/1-82"],
+    ["M68929-1/151018-150946", "X00360-1/1-73", "X12857-1/421-494"],
+]
+
 
 def _bits_equal(got, want, key=""):
     got, want = np.asarray(got), np.asarray(want)
@@ -244,6 +250,22 @@ def _snapshot_group(path, names):
     rows = [rows[n] for n in names]
     keep = [k for k in range(len(rows[0])) if any(r[k] != "-" for r in rows)]
     return ["".join(r[k] for k in keep) for r in rows]
+
+
+@pytest.mark.parametrize("group", range(len(RF00005_GROUPS)))
+def test_module_consensus_bp_matches_jax(group):
+    """The module-level `consensus_bp` (a thin wrapper over
+    `Alifold(th, bl).consensus`) against `dafs_tpu`'s on a group of
+    RF00005's TPU run, both from a cold pf-scale warm start, at the
+    consensus tolerance."""
+    path = os.path.join(os.path.dirname(__file__), "snapshots", "rf00005_default_tpu.txt")
+    seqs = _snapshot_group(path, RF00005_GROUPS[group])
+    j_ali._SC_CACHE.clear()
+    want = j_ali.consensus_bp(seqs, 0.0, bl=True, fast=True)
+    got = t_ali.consensus_bp(seqs, 0.0, bl=True, device="cpu")
+    assert got.shape == want.shape == (len(seqs[0]),) * 2
+    np.testing.assert_allclose(got, want, **TOL)
+    assert got.max() > 0.5
 
 
 @pytest.mark.slow

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from dafs_tpu_torch.ops import (
     alifold, alifold_cuda, contrafold, cuda_lib, nussinov, nussinov_cuda, nw, nw_cuda, paircrf,
     pairhmm, pairhmm_cuda,
@@ -149,10 +150,16 @@ def _mutated(rows, k, rng):
     return out
 
 
+def _tiled(rows, n):
+    """The rows repeated side by side and cut to n columns."""
+    return [(r * (n // len(r) + 1))[:n] for r in rows]
+
+
 def _consensus_cases():
     rng = np.random.default_rng(10)
     r5, r17 = _snapshot_rows("rf00005_default_tpu.txt"), _snapshot_rows("rf00017_default_tpu.txt")
     return {
+        "n 1056": (_tiled(r17, 1056), True, None, None),
         "RF00005 final": (r5, True, None, None),
         "RF00005 final, Vienna": (r5, False, None, None),
         "RF00005 final, BCUT 8": (r5, True, None, 8),
@@ -167,27 +174,33 @@ def _consensus_cases():
 
 @pytest.mark.parametrize("case", [
     "RF00005 final", "RF00005 final, Vienna", "RF00005 final, BCUT 8", "RF00017 final", "NS 2",
-    "NS 3, constrained", "NS 50", "NS 50, Vienna, BCUT 31",
+    "NS 3, constrained", "NS 50", "NS 50, Vienna, BCUT 31", "n 1056",
 ])
 def test_consensus_kernels_match_plain(case, dev):
     """The consensus kernels against the plain loops on the card, through
-    the pf-scale ladder from its first scale: pout within the consensus
-    tolerance (rtol 2e-4, atol 1e-6) and Q within rtol 2e-4, the same
-    attempts and final scale; two runs of the kernels bit-equal."""
+    the pf-scale ladder from its first scale (past n 520 from a scale with
+    Q near 1): pout within the consensus tolerance (rtol 2e-4, atol 1e-6)
+    and Q within rtol 2e-4, the same attempts and final scale; one launch
+    a scan; two runs of the kernels bit-equal."""
     seqs, bl, con, bcut = _consensus_cases()[case]
     x = alifold._inputs(seqs, bl, con)
     n = x["n"]
     BCUT = alifold._bcut(x["S"], n) if bcut is None else bcut
     args = alifold.device_args(x, dev)
-    want = alifold.partition(args, n, x["bsn0"], alifold.SC0, BCUT, ak.inside_outside)
-    got = alifold.partition(args, n, x["bsn0"], alifold.SC0, BCUT, alifold_cuda.inside_outside)
+    # past n of about 520 one ladder step moves Q by more than the ladder's
+    # window, so a long alignment starts from a scale with Q near 1
+    sc0 = alifold.SC0 if n < 520 else chip_smoke.stable_scale(args, n, x["bsn0"], BCUT)
+    want = alifold.partition(args, n, x["bsn0"], sc0, BCUT, ak.inside_outside)
+    got = alifold.partition(args, n, x["bsn0"], sc0, BCUT, alifold_cuda.call_loops())
     np.testing.assert_allclose(got[0], want[0], rtol=2e-4, atol=1e-6)
     np.testing.assert_allclose(got[1], want[1], rtol=2e-4, atol=0)
     assert got[2:] == want[2:]
     p = ak.prepare(*args, n, got[2], x["bsn0"])
-    before = alifold_cuda.INSIDE.launches
+    before = [k.launches for k in (alifold_cuda.INSIDE, alifold_cuda.EXTERIOR,
+                                   alifold_cuda.OUTSIDE)]
     first = [t.clone() for t in alifold_cuda.inside_outside(p, n, BCUT=BCUT)]
-    assert alifold_cuda.INSIDE.launches - before == n - 1
+    assert [k.launches - b for k, b in zip((alifold_cuda.INSIDE, alifold_cuda.EXTERIOR,
+                                            alifold_cuda.OUTSIDE), before)] == [1, 1, 1]
     _equal(alifold_cuda.inside_outside(p, n, BCUT=BCUT), first)
 
 
@@ -233,7 +246,7 @@ def test_alifold_wrapper_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="float32"):
         alifold_cuda.launch_args(bad)
     bad = dict(pk, tensors=dict(pk["tensors"], a2sb=pk["tensors"]["a2sb"].int()))
-    with pytest.raises(ValueError, match="int64"):
+    with pytest.raises(ValueError, match="int16"):
         alifold_cuda.launch_args(bad)
     bad = dict(pk, tensors=dict(pk["tensors"], pout=pk["tensors"]["pout"][:-1]))
     with pytest.raises(ValueError, match="pout"):

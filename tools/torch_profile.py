@@ -5,7 +5,8 @@ on one NVIDIA GPU.
     python3 tools/torch_profile.py [--reps 3] \
         [--runs default:RF00005_0.fa,default:RF00017_4.fa,a:RF00005_0.fa,...]
 
-Each run is a path and a family (from `tests/data/`).  The paths are
+Each run is a path and a family (from `tests/data/`, or `family-50`:
+bench.py's 50 mutated RF00005 tRNAs, `chip_smoke.family50`).  The paths are
 `default` (DAFS's default options), `a` (`-s CONTRAfold -a CONTRAlign`) and
 `b` (`--bp-update --bp-update1`).  For each run: one untimed warm-up run of
 `align_and_fold(..., device="cuda")`, then `--reps` timed runs (host clock,
@@ -140,7 +141,12 @@ def run_family(path, name, reps):
 
     from dafs_tpu_torch import align_and_fold, load_fasta
 
-    fa = load_fasta(os.path.join(ROOT, "tests", "data", name))
+    if name == "family-50":
+        import chip_smoke
+
+        fa = chip_smoke.family50()
+    else:
+        fa = load_fasta(os.path.join(ROOT, "tests", "data", name))
 
     def once():
         torch.cuda.synchronize()
@@ -192,12 +198,12 @@ def main() -> int:
     print(smi)
     report = dict(card=smi, device=torch.cuda.get_device_name(0), families=[])
     traces = {(p, name): align_trace(name) if p == "default" else plain_trace(name)
-              for p, name in runs if p in ("default", "a")}
+              for p, name in runs if p in ("default", "a") and name != "family-50"}
     for path, name in runs:
         r = run_family(path, name, args.reps)
-        if path == "default":
+        if (path, name) in traces and path == "default":
             r["align_kernels"], r["align_other_kernels"] = traces[path, name]
-        elif path == "a":
+        elif (path, name) in traces:
             r["plain_models"] = traces[path, name]
         report["families"].append(r)
         print(f"path {path}, {name}: wall median {r['wall_median']:.3f}s "
@@ -207,14 +213,15 @@ def main() -> int:
             print(f"  {k}: {v['median']:.4f}s [{v['lo']:.4f}-{v['hi']:.4f}]")
         ali = [c for c in r["consensus_calls"] if c["route"] == "alifold"]
         print(f"  consensus: {len(r['consensus_calls']) // args.reps} calls per run, "
-              f"{sum(c['seconds'] for c in r['consensus_calls']) / args.reps:.3f}s per run; "
+              f"{sum(c['seconds'] for c in r['consensus_calls']) / args.reps:.3f}s per run, "
+              f"of it host prep {sum(c['prep_seconds'] for c in ali) / args.reps:.3f}s; "
               f"ladder attempts per run {sum(c['attempts'] for c in ali) / args.reps}")
         print(f"  profiled run {r['profiled_wall']:.3f}s, device busy "
               f"{r['device_busy']:.3f}s, idle share {r['idle_share_profiled']:.3f} "
               f"(against the median wall {r['idle_share_median_wall']:.3f})")
         for row in r["device_time_by_kernel"][:8]:
             print(f"    {row['ms']:10.1f} ms  x{row['count']:<7d} {row['name'][:90]}")
-        if path == "default":
+        if "align_kernels" in r:
             print("  align phase on the device: " + "; ".join(
                 f"{row['name'][:60]} x{row['count']} {row['ms']:.4f} ms"
                 for row in r["align_kernels"])
