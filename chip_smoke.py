@@ -82,6 +82,28 @@
    (`consensus_lengths`): at n 1056, NS 2 and 10, against the plain loops
    on the card with the ladder and determinism checks of the consensus
    phase; at n 2048 (NS 10) well formed and bit-equal across two runs.
+6a. Fold phase (after 6): the McCaskill fold's kernels (`csrc/mccaskill.cu`:
+   inside, exterior, outside), through `mccaskill.batch_bp_posteriors_fast`'s
+   pf-scale ladder under the plain version on the card and under the
+   kernels, at RF00005's fold (B 10, L 96), RF00017's (10, 320),
+   family-50's (50, 96), one sequence, path (b)'s constrained re-fold
+   (RF00005's TPU `SS_cons` projected onto each row), bl=False, a start
+   from a scale at which every Q overflows (RF00005) and the
+   length phase's n 1056 (B 2, RF00017's rows repeated, from a scale with
+   Q near 1): every attempt at the same scales with the same reading of
+   each row, the posteriors within rtol 2e-4 / atol 1e-6, Q within rtol
+   2e-4; then each kernel against the plain step (qb, q1, qn within rtol
+   2e-4 and a millionth of their largest value, pout as above), two runs
+   bit-equal, one launch, CUDA-event ms beside the plain step's, the bound
+   on these inputs, the floor (`mccaskill_cuda.barrier_probe`: the grid
+   barriers of one launch) and `-Xptxas -v`'s registers and shared
+   memory (printed at the build, with the consensus's).  n 2048 (B 2) is
+   checked well formed and bit-equal across two runs, and whether the
+   ladder settles at n 1056 from its first scale is printed.  In every run of the
+   slice, consensus, paths, solvers, options and mesh phases the fold
+   kernels must have launched once each per ladder attempt of each bucket
+   shard on the card (the calls of `mccaskill_cuda.mccaskill`, counted by
+   `watch_fold`), and the plain McCaskill on no card tensor (`check_fold`).
 7. Solvers phase (last): the host merge solvers, counts set to 0 before
    each run: (c) `--ipknot` and (d) `-m 0` on RF00005 with the options the
    CLI builds, each tree topology held to `dafs_tpu`'s CPU output
@@ -95,7 +117,8 @@
    the RF00017 frozen replay (`tests/snapshots/rf00017_replay.npz`)
    through the port's host DD with K3 and K4: tree line, `SS_cons` and
    every row equal the frozen output.
-8. Prints the kernel table as one JSON line, then `{"ok": true, ...}`
+8. Prints the kernel table as one JSON line (K1-K4, the long variants,
+   the consensus's and the fold's kernels), then `{"ok": true, ...}`
    last.  Every launch count in it was read after a run whose counts were
    set to 0 just before: `launches` from the default path's two runs (the
    slice phase, where the variants too are counted), `launches_by_path`
@@ -900,6 +923,7 @@ def kernels():
         "nussinov": nussinov_cuda.DECODE,
         "nw": nw_cuda.DECODE,
         **alifold_kernels(),
+        **fold_kernels(),
     }
 
 
@@ -954,6 +978,7 @@ def slice_phase(dev):
                                ("RF00017_4.fa", "rf00017_default_tpu.txt")):
         fa = read_fasta(fa_name)
         before = {name: k.launches for name, k in all_kernels().items()}
+        watch_fold()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with recorded_consensus(CONSENSUS_CALLS.setdefault(fa_name, [])):
@@ -1038,6 +1063,7 @@ def check_consensus(label, calls, counts):
           f"({attempts} ladder attempts; {steps} diagonals a scan, summed over them)", flush=True)
     if got != want:
         raise AssertionError(f"{label}: consensus launches {got}, the alifold calls need {want}")
+    check_fold(label, counts)
 
 
 class recorded_consensus:
@@ -1377,6 +1403,461 @@ def consensus_phase(dev):
     return consensus_rows(dev, shapes), by_path
 
 
+# ------------------------------------------------------------------- fold --
+# The McCaskill fold's CUDA kernels (`csrc/mccaskill.cu`): inside and outside
+# one cooperative launch an attempt each (a grid barrier between the
+# diagonals), exterior one launch.  Each ladder attempt of each bucket (or
+# shard of one) launches each of the three once, and the plain McCaskill
+# (`mccaskill_kernel.mccaskill_fast`) never runs on a card tensor.
+
+FOLD = {
+    "mccaskill_inside": ("INSIDE", "dafs_tpu/ops/mccaskill_kernel.py:308"),
+    "mccaskill_exterior": ("EXTERIOR", "dafs_tpu/ops/mccaskill_kernel.py:336"),
+    "mccaskill_outside": ("OUTSIDE", "dafs_tpu/ops/mccaskill_kernel.py:494"),
+}
+FOLD_WATCH = {"card_runs": 0, "plain_on_card": 0}
+# -Xptxas -v of each kernel source: {source: {kernel: (registers, smem bytes,
+# spill bytes)}}, filled by `ptxas_report`
+PTXAS: dict = {}
+
+
+def fold_kernels():
+    from dafs_tpu_torch.ops import mccaskill_cuda
+
+    return {name: getattr(mccaskill_cuda, attr) for name, (attr, _) in FOLD.items()}
+
+
+def watch_fold():
+    """Sets to 0 the fold's ladder attempts on a card (the calls of
+    `mccaskill_cuda.mccaskill`, one a bucket shard and attempt) and the
+    count of the plain McCaskill's calls on card tensors (each is wrapped
+    once, to count them)."""
+    from dafs_tpu_torch.ops import mccaskill_cuda
+    from dafs_tpu_torch.ops import mccaskill_kernel as MK
+
+    if not getattr(MK.mccaskill_fast, "counted", False):
+        plain, card = MK.mccaskill_fast, mccaskill_cuda.mccaskill
+
+        def counted(S, *a, **k):
+            if S.is_cuda:
+                FOLD_WATCH["plain_on_card"] += 1
+            return plain(S, *a, **k)
+
+        def card_run(prep, sc):
+            FOLD_WATCH["card_runs"] += 1
+            return card(prep, sc)
+
+        counted.counted = True
+        MK.mccaskill_fast, mccaskill_cuda.mccaskill = counted, card_run
+    FOLD_WATCH["card_runs"] = FOLD_WATCH["plain_on_card"] = 0
+
+
+def check_fold(label, counts):
+    """Since `watch_fold`: each fold kernel launched once per ladder attempt
+    of each bucket shard on the card, and the plain McCaskill ran on no card
+    tensor."""
+    runs, plain = FOLD_WATCH["card_runs"], FOLD_WATCH["plain_on_card"]
+    got = {name: counts[name] for name in FOLD}
+    print(f"{label}: fold kernels {got} for {runs} ladder attempts of bucket shards on the "
+          f"card; the plain McCaskill ran on card tensors {plain} times", flush=True)
+    if any(v != runs for v in got.values()) or plain:
+        raise AssertionError(f"{label}: fold launches {got} for {runs} ladder attempts, plain "
+                             f"McCaskill on the card {plain} times")
+
+
+def ptxas_start():
+    """Starts nvcc -Xptxas -v on the fold's and the consensus's sources (the
+    library's flags), in the background; `ptxas_report` reads it."""
+    from dafs_tpu_torch.ops import cuda_lib
+
+    out = os.path.join(cuda_lib.BUILD_DIR, "ptxas")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for src in ("mccaskill.cu", "alifold.cu"):
+        procs[src] = subprocess.Popen(
+            [cuda_lib._nvcc(), *cuda_lib._COMPILE_FLAGS, "-Xptxas", "-v", "-I", cuda_lib.CSRC_DIR,
+             "-c", "-o", os.path.join(out, src + ".o"), os.path.join(cuda_lib.CSRC_DIR, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def ptxas_report(procs):
+    """Fills PTXAS from `ptxas_start`'s compiles and prints each kernel's
+    registers, shared memory and spills."""
+    for src, proc in procs.items():
+        text, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"nvcc -Xptxas -v {src} failed:\n{text[-3000:]}")
+        table, fn = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and fn:
+                table.setdefault(fn, {})["spill"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+            if m and fn:
+                table.setdefault(fn, {}).update(regs=int(m.group(1)), smem=int(m.group(2) or 0))
+        PTXAS[src] = {}
+        for fn, v in table.items():
+            short = next((k for k in ("inside_kernel", "exterior_kernel", "outside_kernel",
+                                      "barrier_kernel", "empty_kernel") if k in fn), fn)
+            PTXAS[src][short] = v
+        print(f"-Xptxas -v {src}: " + "; ".join(
+            f"{k} {v.get('regs')} registers, {v.get('smem')} bytes smem, {v.get('spill', 0)} "
+            f"bytes spilled" for k, v in sorted(PTXAS[src].items())), flush=True)
+
+
+def refold_constraints(snap_name):
+    """Path (b)'s constrained re-folds of a family: each sequence's
+    constraint from the snapshot's SS_cons projected onto its row ('(' ')'
+    where both ends are bases, '?' elsewhere), as `pipeline._update_bp`
+    builds them; returns (seqs, constraints)."""
+    _, ss, _, rows = read_snapshot(snap_name)
+    stack, pairs = [], []
+    for k, ch in enumerate(ss):
+        if ch == "(":
+            stack.append(k)
+        elif ch == ")":
+            pairs.append((stack.pop(), k))
+    seqs, cons = [], []
+    for row in rows:
+        pos = np.cumsum([c != "-" for c in row]) - 1
+        seq = row.replace("-", "")
+        con = ["?"] * len(seq)
+        for a, b in pairs:
+            if row[a] != "-" and row[b] != "-":
+                con[pos[a]], con[pos[b]] = "(", ")"
+        seqs.append(seq)
+        cons.append("".join(con))
+    return seqs, cons
+
+
+def traced_fold(seqs, dev, bl, cons, sc0, plain):
+    """`mccaskill.batch_bp_posteriors_fast` on the card with every ladder
+    attempt traced (each row's scale, and what the ladder reads: good,
+    over), its attempts run by the plain version (`plain`) or by the
+    kernels.  sc0: each row's first scale (the ladder's exp(-0.6) if None):
+    every attempt's scales are the ladder's times sc0 / exp(-0.6).  Returns (posteriors, trace, the last attempt: pout, Q, sc, the
+    bucket's arguments and tables, and for the plain version its stages'
+    CUDA-event ms and its qb, q1 and qn)."""
+    import torch
+
+    from dafs_tpu_torch.ops import mccaskill
+    from dafs_tpu_torch.ops import mccaskill_kernel as MK
+
+    real = mccaskill.fold_attempt
+    trace, last = [], {}
+    ratio = None if sc0 is None else torch.from_numpy(
+        np.asarray(sc0, np.float32) / np.float32(np.exp(-0.6)))
+
+    def attempt(args, sc, codes, tabs, prep=None):
+        if ratio is not None:
+            sc = sc * ratio.to(sc.device)
+        if plain:
+            ev = {k: torch.cuda.Event(enable_timing=True) for k in ("start", "inside",
+                                                                    "exterior", "end")}
+            ev["start"].record()
+            pout, Q, parts = MK.mccaskill_fast(*args, sc, codes, tabs,
+                                               stage=lambda k: ev[k].record(), parts=True)
+            ev["end"].record()
+            torch.cuda.synchronize()
+            last["plain_ms"] = {
+                "mccaskill_inside": ev["start"].elapsed_time(ev["inside"]),
+                "mccaskill_exterior": ev["inside"].elapsed_time(ev["exterior"]),
+                "mccaskill_outside": ev["exterior"].elapsed_time(ev["end"])}
+            last["parts"] = parts
+        else:
+            pout, Q = real(args, sc, codes, tabs, prep)
+        Qv = Q.cpu().numpy()
+        fin = torch.isfinite(pout).all(dim=2).all(dim=1).cpu().numpy()
+        good = np.isfinite(Qv) & (Qv > 1e-25) & (Qv < 1e25) & fin
+        over = ~np.isfinite(Qv) | (Qv >= 1e25)
+        trace.append((sc.cpu().numpy().tolist(), good.tolist(), over.tolist()))
+        last.update(pout=pout, Q=Q, sc=sc, args=args, codes=codes, tabs=tabs, prep=prep)
+        return pout, Q
+
+    mccaskill.fold_attempt = attempt
+    try:
+        out = mccaskill.batch_bp_posteriors_fast(seqs, 0.0, dev, bl=bl, constraints=cons)
+    finally:
+        mccaskill.fold_attempt = real
+    return out, trace, last
+
+
+def fold_stable_scale(seqs, dev, bl=True):
+    """Per-row scales at which Q lies near 1, found with the kernels (Q
+    scales as sc ** n): past n of about 520 one ladder step moves Q by more
+    than the ladder's window, so a long sequence starts from here."""
+    import torch
+
+    from dafs_tpu_torch import params
+    from dafs_tpu_torch.ops import mccaskill, mccaskill_cuda
+
+    L = mccaskill._round_up(max(len(s) for s in seqs), 32)
+    S, PT, AP, AU, ns = mccaskill.bucket_inputs(seqs, L, len(seqs))
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    prep = mccaskill_cuda.prepare(t(S), t(PT), t(AP), t(AU), t(ns), mccaskill.kmer_codes(t(S)),
+                                  params.to_device(mccaskill._fast_tabs(bl), dev))
+    sc = np.full(len(seqs), np.exp(-0.6), np.float32)
+    for _ in range(40):
+        q = mccaskill_cuda.mccaskill(prep, t(sc))[1].cpu().numpy().astype(np.float64)
+        ok = np.isfinite(q) & (q > 1e-5) & (q < 1e5)
+        if ok.all():
+            return sc
+        step = np.where(np.isfinite(q) & (q > 1e-30), (1.0 / np.maximum(q, 1e-300)) ** (1.0 / ns),
+                        10.0 ** (np.where(np.isfinite(q), 30.0, -30.0) / ns))
+        sc = np.where(ok, sc, (sc * step).astype(np.float32)).astype(np.float32)
+    raise AssertionError("fold: no scale with Q near 1")
+
+
+def diag_to_rows(ld):
+    """(B, Lp, Lp) diag-major ld[b, d, i] = M[b, i, i + d] as M."""
+    import torch
+
+    B, Lp, _ = ld.shape
+    dev = ld.device
+    d = torch.arange(Lp, device=dev)[:, None]
+    i = torch.arange(Lp, device=dev)[None, :]
+    ok = (i + d <= Lp - 1).expand(Lp, Lp)
+    M = torch.zeros_like(ld)
+    M[:, i.expand(Lp, Lp)[ok], (i + d).expand(Lp, Lp)[ok]] = ld[:, ok]
+    return M
+
+
+def fold_work(prep):
+    """{kernel: (float operations, bytes)} of one ladder attempt of a
+    bucket on these inputs.  Operations: multiplies, adds and divides
+    (compares, selects and the gates, 1 here, not counted) of the stencil
+    terms whose outer and inner pairs are both pair-allowed (2 each: the
+    slot constant times the partner's factor, the add; the seven special
+    slots 4), the multiloop rows (2 a term inside, 4 outside), the qm rows
+    (3 a term, every cell), a pair cell's own work (about 20), the
+    exterior chains (2 a pair-allowed cell, 3 a column) and the
+    accumulator updates (4 a term).  Bytes: what each kernel needs, read
+    once and written once: inside the cell factors of the pair-allowed
+    cells (12 floats, the stem factor among them: a cell that cannot pair
+    has qb 0 and needs none) and their qb written, bs_seg and the code byte
+    of every cell, and qm, qm1 written; exterior qb ext of the pair-allowed cells
+    read and q1, qn written; outside the cell factors and qb of the
+    pair-allowed cells, qm and bs_seg of every cell, q1, qn read, pout
+    written."""
+    t = prep["tensors"]
+    P = ((t["code"] >> 6) > 0).cpu().numpy()
+    n = t["nlen"].cpu().numpy().astype(np.float64)
+    B, Lp, _ = P.shape
+    combos = 0.0
+    for u in range(31):
+        for v in range(31 - u):
+            hit = P[:, : Lp - 1 - u, 1 + v :] & P[:, 1 + u :, : Lp - 1 - v]
+            combos += float(hit.sum()) * (4 if (u, v) in ((0, 0), (0, 1), (1, 0), (1, 1), (1, 2),
+                                                           (2, 1), (2, 2)) else 2)
+    bb, pi, pj = np.nonzero(P)
+    pairs = float(len(pi))
+    span = (pj - pi).astype(np.float64)
+    cells = float((n * (n - 1) / 2).sum())
+    qm_terms = float((n * (n - 1) * (n + 1) / 6).sum())
+    ml_out = float((n[bb] - pj).sum())
+    accum = float(span.sum())
+    cols = float(n.sum())
+    inside = (combos + 2 * float((span - 2).clip(min=0).sum()) + 3 * qm_terms + 20 * pairs,
+              (12 * 4 + 4) * pairs + (4 + 1 + 8) * cells)
+    exterior = (2 * 2 * pairs + 2 * 3 * cols, 4 * pairs + 2 * 4 * cols + 4 * B)
+    outside = (combos + 4 * ml_out + 4 * accum + 20 * pairs,
+               (11 * 4 + 4 + 4) * pairs + 8 * cells + 2 * 4 * cols)
+    return {"mccaskill_inside": inside, "mccaskill_exterior": exterior,
+            "mccaskill_outside": outside}
+
+
+def fold_kernel_rows(label, dev, last, reps):
+    """Each fold kernel at the ladder's last attempt of a case: against the
+    plain step (qb, q1, qn and Q within rtol 2e-4 and a millionth of their
+    largest value, pout within rtol 2e-4 / atol 1e-6), two runs bit-equal,
+    one launch, CUDA-event ms beside the plain step's, the bound on these
+    inputs, and the floor (the grid barriers of one launch; one empty
+    launch for the exterior).  Returns {kernel: row}."""
+    import torch
+
+    from dafs_tpu_torch.ops import alifold_cuda, mccaskill_cuda
+
+    prep, sc = last["prep"], last["sc"]
+    parts = last["parts"]
+    pk = mccaskill_cuda.pack(prep, sc)
+    la = mccaskill_cuda.launch_args(pk)
+    t = pk["tensors"]
+    maxn = prep["ints"]["maxn"]
+    grids = (mccaskill_cuda.grid(pk, la), mccaskill_cuda.grid(pk, la, outside_scan=True))
+    npairs = int(t["pairs"].numel())
+    B = prep["ints"]["nb"]
+    print(f"fold {label}: (B, Lp, maxn) = ({B}, {prep['ints']['lp']}, {maxn}); {npairs} "
+          f"pair-allowed cells over {maxn - 1} diagonals; grids (CTAs of 256 threads, a warp "
+          f"a cell) inside {grids[0]}, outside {grids[1]}", flush=True)
+    plain_pout, plain_q = last["plain_pout"], last["plain_Q"]
+    runs = {
+        "mccaskill_inside": (lambda: mccaskill_cuda.inside(pk, la), lambda: (diag_to_rows(t["qbl"]),),
+                             (parts["qb"],), ("qb",), maxn - 1),
+        "mccaskill_exterior": (lambda: mccaskill_cuda.exterior(pk, la),
+                               lambda: (t["q1"], t["qn"], t["q"]),
+                               (parts["q1"], parts["qn"], plain_q), ("q1", "qn", "Q"), None),
+        "mccaskill_outside": (lambda: mccaskill_cuda.outside(pk, la), lambda: (t["pout"],),
+                              (plain_pout,), ("pout",), maxn - 1),
+    }
+    work = fold_work(prep)
+    rows = {}
+    for name, (run, got, want, kinds, steps) in runs.items():
+        kernel = fold_kernels()[name]
+        before = kernel.launches
+        run()
+        first = [g.clone() for g in got()]
+        launched = kernel.launches - before
+        run()
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b) for a, b in zip(first, got()))
+        err = max(max_abs(g, w) for g, w in zip(got(), want))
+        ok = all(consensus_agree(g, w, k) for g, w, k in zip(got(), want, kinds))
+        ms = cuda_ms(run, reps)
+        floor_ms = (cuda_ms(lambda: mccaskill_cuda.barrier_probe(pk, la, steps), reps) if steps
+                    else cuda_ms(lambda: alifold_cuda.floor_probe(dev, 1), reps))
+        bound_ms, bound_by, bound_kind = bound(*work[name])
+        plain_ms = last["plain_ms"][name]
+        ptx = PTXAS.get("mccaskill.cu", {}).get(name.replace("mccaskill_", "") + "_kernel", {})
+        print(f"kernel {name} {label}: two runs bit-equal={exact} max_abs_err={err!r} within "
+              f"tolerance ({', '.join(kinds)})={ok} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"launches={launched}; floor {floor_ms:.4f} ms "
+              f"({'%d grid barriers in one launch' % steps if steps else 'one empty launch'}); "
+              f"bound {bound_ms:.6f} ms ({bound_by}; {work[name][0]:.4g} operations, "
+              f"{work[name][1]:.4g} bytes); {ptx.get('regs')} registers, {ptx.get('smem')} "
+              f"bytes smem", flush=True)
+        if not (exact and ok and launched == 1):
+            raise AssertionError(f"{name} {label}: not bit-equal across runs, outside the "
+                                 f"tolerance of the plain step, or {launched} launches")
+        rows[name] = dict(name=name, route="cuda", source="dafs_tpu_torch/csrc/mccaskill.cu",
+                          replaces=FOLD[name][1], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, bound_kind=bound_kind,
+                          library_ms=None, floor_ms=floor_ms, diagonals=steps,
+                          registers=ptx.get("regs"), smem_bytes=ptx.get("smem"),
+                          launched_by="mccaskill.fold_attempt")
+    total = cuda_ms(lambda: mccaskill_cuda.mccaskill(prep, sc), reps)
+    barriers = cuda_ms(lambda: mccaskill_cuda.barrier_probe(pk, la, 2 * (maxn - 1)), reps)
+    print(f"fold {label}: the three kernels {total:.4f} ms an attempt (pack and launches), the "
+          f"plain version {sum(last['plain_ms'].values()):.1f} ms; floor ({2 * (maxn - 1)} grid "
+          f"barriers) {barriers:.4f} ms", flush=True)
+    return rows
+
+
+def fold_case(label, dev, seqs, cons=None, bl=True, start=None, reps=5):
+    """The fold of `seqs` through the pf-scale ladder on the card under the
+    plain version and under the kernels: every attempt at the same scales
+    with the same reading (good, over) of each row, the posteriors within
+    rtol 2e-4 / atol 1e-6, and at the last attempt pout and Q as
+    `consensus_agree` holds them; then `fold_kernel_rows`.  start: None
+    (exp(-0.6)), "over" (a scale at which every Q overflows, from the
+    settled one) or "stable" (Q near 1).  Returns the kernel rows."""
+    import torch
+
+    from dafs_tpu_torch.ops import mccaskill_cuda
+
+    t0 = time.perf_counter()
+    sc0 = None
+    if start == "stable":
+        sc0 = fold_stable_scale(seqs, dev, bl)
+    elif start == "over":
+        _, _, last = traced_fold(seqs, dev, bl, cons, None, plain=False)
+        sc_ok, q = last["sc"].cpu().numpy(), last["Q"].cpu().numpy().astype(np.float64)
+        ns = np.array([len(s) for s in seqs], np.float64)
+        sc0 = (sc_ok * (1e39 / q) ** (1.0 / ns)).astype(np.float32)
+    t1 = time.perf_counter()
+    want, tr_p, last_p = traced_fold(seqs, dev, bl, cons, sc0, plain=True)
+    plain_s = time.perf_counter() - t1
+    got, tr_k, last_k = traced_fold(seqs, dev, bl, cons, sc0, plain=False)
+    err = max(float(np.abs(g.astype(np.float64) - w).max()) for g, w in zip(got, want))
+    ok = (tr_k == tr_p and consensus_agree(last_k["pout"], last_p["pout"], "pout")
+          and consensus_agree(last_k["Q"], last_p["Q"], "Q")
+          and all(consensus_agree(torch.from_numpy(g), torch.from_numpy(w), "pout")
+                  for g, w in zip(got, want)))
+    again = [x.clone() for x in mccaskill_cuda.mccaskill(last_k["prep"], last_k["sc"])]
+    exact = all(torch.equal(a, b) for a, b in zip(again, mccaskill_cuda.mccaskill(
+        last_k["prep"], last_k["sc"])))
+    print(f"fold {label} (B, n) = ({len(seqs)}, {min(len(s) for s in seqs)}-"
+          f"{max(len(s) for s in seqs)}), bl {bl}, constrained {cons is not None}, start "
+          f"{start or 'exp(-0.6)'}: ladder attempts plain/kernels {len(tr_p)}/{len(tr_k)}, the "
+          f"same scales and readings: {tr_k == tr_p}; posteriors max_abs_err {err!r}; Q kernels "
+          f"{last_k['Q'].cpu().numpy().tolist()} plain {last_p['Q'].cpu().numpy().tolist()}; "
+          f"within rtol 2e-4 (atol 1e-6 pout, 0 Q): {ok}; two runs bit-equal {exact}; the plain "
+          f"ladder {plain_s:.1f}s ({time.perf_counter() - t0:.1f}s)", flush=True)
+    if start == "over" and any(tr_p[0][1]):
+        raise AssertionError(f"fold {label}: Q did not overflow at the start")
+    if not (ok and exact):
+        raise AssertionError(f"fold {label}: the kernels differ from the plain version")
+    last_k.update(parts=last_p["parts"], plain_ms=last_p["plain_ms"],
+                  plain_pout=last_p["pout"], plain_Q=last_p["Q"])
+    return fold_kernel_rows(label, dev, last_k, reps)
+
+
+def fold_phase(dev):
+    """The fold kernels against the plain version on the card at the main
+    path's buckets and past them; returns {kernel: row} (RF00017's numbers,
+    every case's beside them under "by_case")."""
+    import torch
+
+    from dafs_tpu_torch.ops import mccaskill_cuda
+
+    r5 = [f.seq for f in read_fasta("RF00005_0.fa")]
+    r17 = [f.seq for f in read_fasta("RF00017_4.fa")]
+    fam = [f.seq for f in family50()]
+    con_seqs, cons = refold_constraints("rf00005_default_tpu.txt")
+    rows17 = read_snapshot("rf00017_default_tpu.txt")[3]
+    tiled = lambda n: [(r.replace("-", "") * (n // 290 + 1))[:n] for r in rows17[:2]]  # noqa: E731
+    cases = [
+        ("RF00005's fold", dict(seqs=r5)),
+        ("RF00017's fold", dict(seqs=r17, reps=3)),
+        ("family-50's fold", dict(seqs=fam)),
+        ("a single sequence", dict(seqs=r5[:1])),
+        ("path (b)'s constrained re-fold", dict(seqs=con_seqs, cons=cons)),
+        ("bl=False (path (a)'s consensus parameters)", dict(seqs=r5, bl=False)),
+        ("an overflowing start", dict(seqs=r5, start="over")),
+        ("the length phase n 1056", dict(seqs=tiled(1056), start="stable", reps=2)),
+    ]
+    rows, by_case = {}, {}
+    for label, kw in cases:
+        got = fold_case(label, dev, **kw)
+        for name, row in got.items():
+            by_case.setdefault(name, {})[label] = {k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms", "max_abs_err")}
+        if label == "RF00017's fold":
+            rows = got
+    # n 2048: the kernels alone, well formed and bit-equal across two runs
+    t0 = time.perf_counter()
+    seqs = tiled(2048)
+    out, trace, last = traced_fold(seqs, dev, True, None, fold_stable_scale(seqs, dev), False)
+    pout, Q = last["pout"], last["Q"]
+    again = [x.clone() for x in mccaskill_cuda.mccaskill(last["prep"], last["sc"])]
+    exact = all(torch.equal(a, b) for a, b in zip(again, mccaskill_cuda.mccaskill(
+        last["prep"], last["sc"])))
+    ms = cuda_ms(lambda: mccaskill_cuda.mccaskill(last["prep"], last["sc"]), 1)
+    lo, hi = float(pout.min()), float(pout.max())
+    ok = bool(torch.isfinite(Q).all()) and bool(torch.isfinite(pout).all()) and lo >= 0.0 \
+        and hi <= 1.0 + 2e-4 and exact
+    print(f"fold the length phase n 2048 (B 2): {len(trace)} attempt(s), Q "
+          f"{Q.cpu().numpy().tolist()}, pout in [{lo!r}, {hi!r}]; the kernels {ms:.4f} ms an "
+          f"attempt; two runs bit-equal {exact}; well formed: {ok} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    if not ok:
+        raise AssertionError("fold n 2048: not well formed or not bit-equal across runs")
+    # the ladder from its first scale past n 520 (ROADMAP C.7): read, not held
+    try:
+        _, trace, _ = traced_fold(tiled(1056), dev, True, None, None, False)
+        print(f"fold n 1056 from exp(-0.6): the ladder settled in {len(trace)} attempt(s)",
+              flush=True)
+    except FloatingPointError:
+        print("fold n 1056 from exp(-0.6): the ladder did not settle in 16 attempts",
+              flush=True)
+    for name in rows:
+        rows[name]["by_case"] = by_case[name]
+    return rows
+
+
 # ------------------------------------------------------------------ paths --
 
 CONTRA = dict(align_model="CONTRAlign", fold_model="CONTRAfold")
@@ -1511,6 +1992,7 @@ def timed_run(fa, dev, **kw):
 
     for k in all_kernels().values():
         k.launches = 0
+    watch_fold()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = align_and_fold(fa, device=dev, **kw)
@@ -1581,6 +2063,7 @@ def replay_rf00017(dev):
     d.tree = guide_tree.build_tree(data["sim"])
     for k in all_kernels().values():
         k.launches = 0
+    watch_fold()
     phases = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1604,6 +2087,7 @@ def replay_rf00017(dev):
         raise AssertionError("replay RF00017: the output differs from the frozen output")
     if counts["nw"] != iters or counts["nussinov"] != iters + 1:
         raise AssertionError(f"replay RF00017: {iters} iterations but launches {counts}")
+    check_fold("replay RF00017", counts)
     return wall, iters, counts, phases
 
 
@@ -1839,11 +2323,11 @@ def param_file_runs(dev, fa, by_path, flags, ref_name):
     plain = mccaskill.batch_bp_posteriors_fast([seq], 0.0, dev)[0]
     try:
         res, wall, counts = timed_run(fa, dev, **cli_options(flags))
+        report_run(label, res, wall, counts, fa, by_path)
         print(f"(l) overrides in force: {energy_params.PARAM_OVERRIDES}")
         changed = mccaskill.batch_bp_posteriors_fast([seq], 0.0, dev)[0]
     finally:
         energy_params.set_param_overrides({})
-    report_run(label, res, wall, counts, fa, by_path)
     against_snapshot(label, res, ref_name)
     moved = float(np.abs(changed.astype(np.float64) - plain).max())
     print(f"(l) {fa[0].name}'s fold posteriors under the overrides: max |change| = "
@@ -1923,6 +2407,7 @@ def family_stages(fa, dev, ctx):
             torch.cuda.reset_peak_memory_stats(d)
         for k in all_kernels().values():
             k.launches = 0
+        watch_fold()
 
         def stage(name, fn):
             for d in devices:
@@ -1946,6 +2431,7 @@ def family_stages(fa, dev, ctx):
             guide_tree.build_tree(sim), [f.name for f in fa]))
         counts = {name: k.launches for name, k in all_kernels().items()}
         peak = {str(d): torch.cuda.max_memory_allocated(d) for d in devices}
+    check_fold(f"family-50 stages on {len(devices)} device(s)", counts)
     return out, secs, counts, peak
 
 
@@ -2035,9 +2521,11 @@ def mesh_phase(dev):
 
     for k in all_kernels().values():
         k.launches = 0
+    watch_fold()
     t0 = time.perf_counter()
     dryrun.dryrun_multichip(2, one_card)
     counts = {name: k.launches for name, k in all_kernels().items()}
+    check_fold("(m2) dry run", counts)
     for name, n in counts.items():
         by_path[name]["(m2) dry run, 2 shards of one card"] = n
     print(f"(m2) dryrun_multichip(2): {time.perf_counter() - t0:.3f}s for three "
@@ -2076,8 +2564,10 @@ def main() -> int:
     print(smi)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    ptxas = ptxas_start()
     cuda_lib.library()
     print(f"built and loaded {cuda_lib.build()} in {time.perf_counter() - t0:.1f}s")
+    ptxas_report(ptxas)
     rows, seconds = {}, {}
 
     def run(phase, fn):
@@ -2089,6 +2579,7 @@ def main() -> int:
 
     rows.update(run("kernels", kernel_phase))
     rows.update(run("length", length_phase))
+    rows.update(run("fold", fold_phase))
     counts = run("slice", slice_phase)
     ali_rows, by_path = run("consensus", consensus_phase)
     rows.update(ali_rows)

@@ -88,6 +88,21 @@ def similarity_dp(p, present, l1, l2):
     return dp_out, tr_out
 
 
+def similarity(mp: np.ndarray, present: np.ndarray, l1: int, l2: int, device="cuda") -> float:
+    """calculate_similarity_score for one pair (`dafs_tpu/consistency.py:95`):
+    mp the dense (l1, l2) or larger match posteriors, present where the
+    sparse matrix has an entry; dp / tr of the similarity DP."""
+    P1, P2 = _round_up(l1, 32), _round_up(l2, 32)
+    pp = np.zeros((1, P1, P2), np.float32)
+    pp[0, :l1, :l2] = mp[:l1, :l2]
+    ee = np.zeros((1, P1, P2), bool)
+    ee[0, :l1, :l2] = present[:l1, :l2]
+    dev = torch.device(device)
+    dp, tr = similarity_dp(torch.from_numpy(pp).to(dev), torch.from_numpy(ee).to(dev),
+                           torch.tensor([l1], device=dev), torch.tensor([l2], device=dev))
+    return float(np.float32(float(dp[0]) / float(tr[0])))
+
+
 def similarity_matrix(mp: np.ndarray, lens: list[int], device) -> np.ndarray:
     """All-pairs similarity in one batched run.
 

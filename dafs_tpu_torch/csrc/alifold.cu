@@ -630,34 +630,87 @@ __global__ void __launch_bounds__(kThreads, 1) inside_kernel(const AlifoldArgs a
 }
 
 // -------------------------------------------------------------- exterior --
-// Block 0 walks q1 over j = 1 .. n, block 1 qn over i = n .. 1, one warp
-// each, the stems of a step summed over the warp (alifold_kernel.exterior).
-__global__ void exterior_kernel(const AlifoldArgs a) {
-  const int lane = threadIdx.x, n = a.n, lp = a.lp;
+// Block 0 walks q1 over j = 1 .. n, block 1 qn over i = n .. 1
+// (alifold_kernel.exterior), by pushing each finished value forward: the
+// threads own the columns, and when q1[k] is final (broadcast through shared
+// memory) every thread adds q1[k] * (qb[k+1][c] * ext[k+1][c]) to the
+// accumulator of each of its columns c > k, with the next step's loads
+// already in flight; the owner of column k + 1 then finishes q1[k + 1].  A
+// step is one broadcast and a multiply-add a thread.  qn is the mirror image:
+// qn[m] adds qb[c][m-1] * ext[c][m-1] * qn[m] to every column c < m.  Each
+// accumulator gains its terms in a fixed order (ascending k for q1,
+// descending m for qn).
+constexpr int kExtThreads = 1024;
+constexpr int kExtCols = 5;   // columns a thread: Lp <= 5 * 1024
+
+__global__ void __launch_bounds__(kExtThreads) exterior_kernel(const AlifoldArgs a) {
+  __shared__ float chain[kExtCols * kExtThreads];
+  const int tid = threadIdx.x, T = blockDim.x, n = a.n, lp = a.lp;
   const float sc = a.tabs[a.o_sc];
-  if (blockIdx.x == 0) {
-    if (lane == 0) a.q1[0] = 1.0f;
-    __syncwarp();
-    for (int j = 1; j <= n; ++j) {
-      float acc = 0.0f;
-      for (int i = 1 + lane; i <= j; i += 32)
-        acc += a.q1[i - 1] * (a.qbl[ldo(a, i, j)] * a.ext[static_cast<int64_t>(i) * lp + j]);
-      acc = warp_sum(acc);
-      if (lane == 0) a.q1[j] = a.q1[j - 1] * sc * a.gate_u[j] + acc;
-      __syncwarp();
+  const bool forward = blockIdx.x == 0;
+  float acc[kExtCols], cur[kExtCols], nxt[kExtCols];
+#pragma unroll
+  for (int r = 0; r < kExtCols; ++r) acc[r] = cur[r] = nxt[r] = 0.0f;
+  for (int c = tid; c < lp; c += T) chain[c] = 0.0f;
+  __syncthreads();
+  if (forward) {
+    // q1[k+1] = q1[k] sc gate_u[k+1] + sum_{k' <= k} q1[k'] (qb ext)[k'+1][k+1]
+#pragma unroll
+    for (int r = 0; r < kExtCols; ++r) {
+      const int c = tid + r * T;
+      if (c >= 1 && c <= n) nxt[r] = __ldcg(a.qbl + ldo(a, 1, c)) * __ldg(a.ext + lp + c);
     }
-    if (lane == 0) a.q[0] = a.q1[n];
+    if (tid == 0) chain[0] = 1.0f;
+    __syncthreads();
+    for (int k = 0; k < n; ++k) {
+#pragma unroll
+      for (int r = 0; r < kExtCols; ++r) {
+        cur[r] = nxt[r];
+        const int c = tid + r * T;
+        if (c >= k + 2 && c <= n)
+          nxt[r] = __ldcg(a.qbl + ldo(a, k + 2, c))
+                   * __ldg(a.ext + static_cast<int64_t>(k + 2) * lp + c);
+      }
+      const float qk = chain[k];
+#pragma unroll
+      for (int r = 0; r < kExtCols; ++r) {
+        const int c = tid + r * T;
+        if (c > k && c <= n) acc[r] += qk * cur[r];
+        if (c == k + 1) chain[c] = qk * sc * __ldg(a.gate_u + c) + acc[r];
+      }
+      __syncthreads();
+    }
+    for (int c = tid; c < lp; c += T) a.q1[c] = chain[c];
+    if (tid == 0) a.q[0] = chain[n];
   } else {
-    if (lane == 0) a.qn[n + 1] = 1.0f;
-    __syncwarp();
-    for (int i = n; i >= 1; --i) {
-      float acc = 0.0f;
-      for (int j = i + lane; j <= n; j += 32)
-        acc += a.qbl[ldo(a, i, j)] * a.ext[static_cast<int64_t>(i) * lp + j] * a.qn[j + 1];
-      acc = warp_sum(acc);
-      if (lane == 0) a.qn[i] = a.qn[i + 1] * sc * a.gate_u[i] + acc;
-      __syncwarp();
+    // qn[m-1] = qn[m] sc gate_u[m-1] + sum_{m' >= m} (qb ext)[m-1][m'-1] qn[m']
+#pragma unroll
+    for (int r = 0; r < kExtCols; ++r) {
+      const int c = tid + r * T;
+      if (c >= 1 && c <= n)
+        nxt[r] = __ldcg(a.qbl + ldo(a, c, n)) * __ldg(a.ext + static_cast<int64_t>(c) * lp + n);
     }
+    if (tid == 0) chain[n + 1] = 1.0f;
+    __syncthreads();
+    for (int m = n + 1; m >= 2; --m) {
+#pragma unroll
+      for (int r = 0; r < kExtCols; ++r) {
+        cur[r] = nxt[r];
+        const int c = tid + r * T;
+        if (c >= 1 && c <= m - 2)
+          nxt[r] = __ldcg(a.qbl + ldo(a, c, m - 2))
+                   * __ldg(a.ext + static_cast<int64_t>(c) * lp + m - 2);
+      }
+      const float qm = chain[m];
+#pragma unroll
+      for (int r = 0; r < kExtCols; ++r) {
+        const int c = tid + r * T;
+        if (c >= 1 && c <= m - 1) acc[r] += cur[r] * qm;
+        if (c == m - 1) chain[c] = qm * sc * __ldg(a.gate_u + c) + acc[r];
+      }
+      __syncthreads();
+    }
+    for (int c = tid; c < lp; c += T) a.qn[c] = chain[c];
   }
 }
 
@@ -809,7 +862,10 @@ extern "C" int dafs_alifold_inside(const AlifoldArgs* args, cudaStream_t stream)
 }
 
 extern "C" int dafs_alifold_exterior(const AlifoldArgs* args, cudaStream_t stream) {
-  exterior_kernel<<<2, 32, 0, stream>>>(*args);
+  if (args->lp > kExtCols * kExtThreads || args->n + 1 >= args->lp)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = args->lp >= kExtThreads ? kExtThreads : (args->lp + 31) / 32 * 32;
+  exterior_kernel<<<2, threads, 0, stream>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
 

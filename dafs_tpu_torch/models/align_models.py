@@ -22,6 +22,10 @@ class AlignModel:
     def batch_pair_posteriors(self, seqs1, seqs2, device) -> list[np.ndarray]:
         raise NotImplementedError
 
+    def pair_posterior(self, seq1: str, seq2: str, device="cuda") -> np.ndarray:
+        """One pair's match posteriors (`dafs_tpu/models/align_models.py:20`)."""
+        return self.batch_pair_posteriors([seq1], [seq2], device)[0]
+
     def all_pairs(self, fa: list[Fasta], device) -> np.ndarray:
         """(N, N, L, L) tensor: mp[x,y] dense posteriors, mp[y,x] transpose,
         mp[x,x] identity (src/align.cpp:35-52 + transpose at src/dafs.cpp:1797)."""

@@ -28,6 +28,15 @@ class FoldModel:
         when `constraints` is given."""
         raise NotImplementedError
 
+    def bp_posterior(self, seq: str, device="cuda") -> np.ndarray:
+        """One sequence's posteriors (`dafs_tpu/models/fold_models.py:20`)."""
+        return self.batch_bp_posteriors([seq], device)[0]
+
+    def bp_posterior_constrained(self, seq: str, constraint: str, device="cuda") -> np.ndarray:
+        """One sequence's posteriors under a structure constraint
+        (`dafs_tpu/models/fold_models.py:23`)."""
+        return self.batch_bp_posteriors([seq], device, constraints=[constraint])[0]
+
     def all_seqs(self, fa: list[Fasta], device, posts=None) -> np.ndarray:
         """(N, L, L) padded tensor of BP posteriors (upper triangle).
 

@@ -406,6 +406,12 @@ def _prep_one(seq: str, n: int, L: int, constraint: str | None):
     return s, allow_pair, allow_unpaired_pos
 
 
+def bp_posterior(seq: str, th: float, device="cuda", constraint: str | None = None) -> np.ndarray:
+    """One sequence's (n, n) upper-triangular pair posteriors, entries kept
+    > th (`dafs_tpu/ops/contrafold.py:572`)."""
+    return batch_bp_posteriors([seq], th, device, constraints=[constraint])[0]
+
+
 def batch_bp_posteriors(seqs, th, device, constraints=None):
     """Dense (n, n) float32 numpy pair posteriors per sequence (upper
     triangle), entries kept only when strictly greater than `th`: one

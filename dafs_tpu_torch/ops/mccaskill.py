@@ -9,6 +9,12 @@ Scaling: a per-base scale factor (Vienna's pf_scale^-1) starts at exp(-0.6)
 and is retried per sequence on over/underflow, exactly as the JAX package's
 ladder; probabilities are scale-invariant, so this only affects rounding.
 
+Each ladder attempt of a bucket goes through `fold_attempt`: CUDA tensors to
+the kernels of `csrc/mccaskill.cu` (`mccaskill_cuda`, their bucket tables
+built once before the ladder), CPU tensors to the plain version
+`mccaskill_kernel.mccaskill_fast`.  There is no fallback: a failed build or
+a refused launch raises.
+
 The slow reference recursion (`_inside_outside`) is not ported; it stays
 in `dafs_tpu` as an oracle.
 """
@@ -20,6 +26,7 @@ import torch
 
 from dafs_tpu_torch import params
 from dafs_tpu_torch.ops import energy_params as ep
+from dafs_tpu_torch.ops import mccaskill_cuda
 from dafs_tpu_torch.ops import mccaskill_kernel as MK
 from dafs_tpu_torch.parallel.mesh import shard_slices
 
@@ -31,24 +38,24 @@ def _round_up(n, m):
     return -(-n // m) * m
 
 
-def _kmer_codes(s_codes: np.ndarray, k: int, L: int) -> np.ndarray:
-    """code of the k-mer starting at 1-based position i (0 if out of range).
-
-    s_codes: (L+2,) Vienna base codes (1..4); code digits are base-1 in base 4.
-    """
-    out = np.zeros(L + 2, dtype=np.int32)
-    n = len(s_codes) - 2
-    for i in range(1, n - k + 2):
-        v = 0
-        ok = True
+def kmer_codes(S: torch.Tensor) -> tuple:
+    """The codes of the 5-, 6- and 8-mers (a tri-, tetra- or hexaloop with
+    its closing pair) starting at each 1-based position of S (B, L+2)
+    Vienna base codes, on S's device, int32: the bases' codes minus 1 as
+    base-4 digits, 0 where the k-mer holds an N or runs past the sequence."""
+    S = S.long()
+    B, Lp = S.shape
+    pad = torch.cat([S, torch.zeros((B, 8), dtype=S.dtype, device=S.device)], dim=1)
+    out = []
+    for k in (5, 6, 8):
+        code = torch.zeros_like(S)
+        ok = torch.ones_like(S, dtype=torch.bool)
         for d in range(k):
-            b = int(s_codes[i + d]) - 1
-            if b < 0:
-                ok = False
-                break
-            v = v * 4 + b
-        out[i] = v if ok else 0
-    return out
+            digit = pad[:, d : d + Lp] - 1
+            ok &= digit >= 0
+            code = code * 4 + digit.clamp(min=0)
+        out.append(torch.where(ok, code, 0).to(torch.int32))
+    return tuple(out)
 
 
 def _prepare(seq: str, L: int, constraint: str | None):
@@ -149,6 +156,36 @@ def _fast_tabs(bl: bool) -> dict:
     return _FAST_TABLES[bl]
 
 
+def fold_attempt(args, sc, codes, tabs, prep=None):
+    """(pout (B, Lp, Lp), Q (B,)) of one ladder attempt on one bucket shard:
+    args = (S, pt, allow_pair, allow_unpaired, n) and codes on one device,
+    sc (B,) float32 there.  CUDA tensors go to the kernels, with `prep` =
+    `mccaskill_cuda.prepare` of the shard; CPU tensors to the plain
+    version."""
+    if args[0].is_cuda:
+        if prep is None:
+            raise ValueError("fold_attempt: CUDA tensors need the bucket's mccaskill_cuda.prepare")
+        return mccaskill_cuda.mccaskill(prep, sc)
+    return MK.mccaskill_fast(*args, sc, codes, tabs)
+
+
+def bucket_inputs(seqs, L, B, constraints=None):
+    """`mccaskill_fast`'s arguments of one 32-length bucket but the k-mer
+    codes (`kmer_codes`), as numpy arrays: (S, PT, AP, AU, ns), B rows, the
+    sequences first and then trivial length-1 rows (`ns = 1`, nothing
+    unpaired)."""
+    S = np.zeros((B, L + 2), np.int32)
+    PT = np.zeros((B, L + 2, L + 2), np.int32)
+    AP = np.zeros((B, L + 2, L + 2), bool)
+    AU = np.zeros((B, L + 2), bool)
+    ns = np.ones(B, np.int32)  # padding rows: trivial length-1 problems
+    for bi, seq in enumerate(seqs):
+        c = constraints[bi] if constraints is not None else None
+        S[bi], PT[bi], AP[bi], AU[bi] = _prepare(seq, L, c)
+        ns[bi] = len(seq)
+    return S, PT, AP, AU, ns
+
+
 def batch_bp_posteriors_fast(seqs, th, device, bl=True, constraints=None, devices=None):
     """BP posteriors of a list of sequences: one batched run per 32-length
     bucket.  Returns dense (n, n) float32 numpy matrices (upper triangle),
@@ -168,27 +205,20 @@ def batch_bp_posteriors_fast(seqs, th, device, bl=True, constraints=None, device
         buckets.setdefault(_round_up(len(s), 32), []).append(i)
     for L, idxs in buckets.items():
         B, slices = shard_slices(len(idxs), len(devices))
-        S = np.zeros((B, L + 2), np.int32)
-        PT = np.zeros((B, L + 2, L + 2), np.int32)
-        AP = np.zeros((B, L + 2, L + 2), bool)
-        AU = np.zeros((B, L + 2), bool)
-        CODES = np.zeros((3, B, L + 2), np.int32)
-        ns = np.ones(B, np.int32)  # padding rows: trivial length-1 problems
-        for bi, i in enumerate(idxs):
-            c = constraints[i] if constraints is not None else None
-            S[bi], PT[bi], AP[bi], AU[bi] = _prepare(seqs[i], L, c)
-            for ci, k in enumerate((5, 6, 8)):  # tri-, tetra-, hexaloop k-mers
-                CODES[ci, bi] = _kmer_codes(S[bi], k, L)
-            ns[bi] = len(seqs[i])
+        S, PT, AP, AU, ns = bucket_inputs(
+            [seqs[i] for i in idxs], L, B,
+            None if constraints is None else [constraints[i] for i in idxs])
         shards = []
         for dev, sl in zip(devices, slices):
             as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a[sl])).to(dev)  # noqa: E731
-            shards.append((dev, sl, (as_t(S), as_t(PT), as_t(AP), as_t(AU), as_t(ns)),
-                           tuple(as_t(c) for c in CODES)))
+            args = (as_t(S), as_t(PT), as_t(AP), as_t(AU), as_t(ns))
+            codes = kmer_codes(args[0])
+            prep = mccaskill_cuda.prepare(*args, codes, tabs[dev]) if args[0].is_cuda else None
+            shards.append((dev, sl, args, codes, prep))
         sc = np.full(B, np.exp(-0.6), np.float32)
         for _ in range(16):
-            runs = [MK.mccaskill_fast(*args, torch.from_numpy(sc[sl]).to(dev), codes, tabs[dev])
-                    for dev, sl, args, codes in shards]
+            runs = [fold_attempt(args, torch.from_numpy(sc[sl]).to(dev), codes, tabs[dev], prep)
+                    for dev, sl, args, codes, prep in shards]
             Qv = np.concatenate([Q.cpu().numpy() for _, Q in runs])
             pm = np.concatenate([pout.cpu().numpy() for pout, _ in runs])
             good = (
@@ -208,3 +238,11 @@ def batch_bp_posteriors_fast(seqs, th, device, bl=True, constraints=None, device
             np.clip(p, 0.0, 1.0, out=p)
             out[i] = p
     return out
+
+
+def bp_posterior_fast(seq: str, th: float, device="cuda", bl: bool = True, constraint=None):
+    """BP posteriors of one sequence (`dafs_tpu/ops/mccaskill.py:915`): its
+    bucket of one through `batch_bp_posteriors_fast`, whose ladder steps
+    that row's scale as `dafs_tpu`'s single-sequence ladder does."""
+    return batch_bp_posteriors_fast(
+        [seq], th, device, bl=bl, constraints=None if constraint is None else [constraint])[0]

@@ -23,8 +23,11 @@ exterior loop's per-row sums, `tree_sum`.
 - the multiloop outside term is kept in two running (L+2)^2 accumulators.
 
 Argument semantics are those of `ops/mccaskill.py` (1-based positions over a
-padded length L; index 0 and L+1 are padding).  A measurement on the card
-decides whether this becomes a hand-written kernel.
+padded length L; index 0 and L+1 are padding).  This is the plain version:
+`ops/mccaskill.py` takes it for CPU tensors only; CUDA tensors go to the
+kernels of `csrc/mccaskill.cu` (`ops/mccaskill_cuda.py`), which read the
+per-cell factors these helpers build (`side_factors`, `exterior_factor`,
+`bs_segments`), so both routes round those once, by the same torch ops.
 """
 
 from __future__ import annotations
@@ -51,7 +54,85 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
-def mccaskill_fast(S, pt, allow_pair, allow_unpaired, n, sc, codes, tabs):
+def tau_factor(tpx, t):
+    """The terminal AU factor of pair type `tpx` (1 for GC and CG)."""
+    return torch.where(tpx > 2, t["tau"], 1.0)
+
+
+def blocked_prefix(allow_unpaired, n):
+    """(B, Lp) float32: the count of positions 1..a that may not be
+    unpaired (every position past n among them)."""
+    B, Lp = allow_unpaired.shape
+    ii = torch.arange(Lp, device=allow_unpaired.device)
+    logv = torch.where((ii >= 1) & (ii <= n.long()[:, None]) & allow_unpaired, 1.0, 0.0)
+    return torch.cumsum(torch.where(ii >= 1, 1.0 - logv, 0.0), dim=1)
+
+
+def segments(blocked_pref):
+    """(seg_len, seg_ok): seg_len[a, b] = b - a + 1 (Lp, Lp); seg_ok (B, Lp,
+    Lp) true where the segment a..b is empty or may stay unpaired."""
+    Lp = blocked_pref.shape[1]
+    ii = torch.arange(Lp, device=blocked_pref.device)
+    seg_len = ii[None, :] - ii[:, None] + 1
+    seg_blocked = blocked_pref[:, None, :] - blocked_pref[:, (ii - 1).clamp(min=0)][:, :, None]
+    return seg_len, (seg_len <= 0) | (seg_blocked == 0)
+
+
+def bs_segments(seg_len, seg_ok, bs):
+    """(B, Lp, Lp): bs ** (b - a + 1) over an unpaired segment a..b, 1 over
+    an empty one, 0 where it may not stay unpaired; bs (B,) the multiloop
+    base factor times the scale."""
+    return torch.where(
+        seg_len <= 0, 1.0,
+        torch.where(seg_ok, bs[:, None, None] ** seg_len.to(torch.float32), 0.0),
+    )
+
+
+def side_factors(S, pt, t):
+    """The interior-loop stencil's per-cell factors (B, Lp, Lp): F_* of the
+    inner pair (a, b) (its reversed type and the bases inside it), G_* of
+    the outer pair (its type and the bases inside it)."""
+    Lp = S.shape[1]
+    ii = torch.arange(Lp, device=S.device)
+    RT = torch.as_tensor(ep.RTYPE, device=S.device).long()
+    rt_mat = RT[pt]
+    s_im1 = S[:, (ii - 1).clamp(0, Lp - 1)]  # S[a-1]
+    s_ip1 = S[:, (ii + 1).clamp(0, Lp - 1)]  # S[a+1]
+    return {
+        "F_gen": t["mmI"][rt_mat, s_ip1[:, None, :], s_im1[:, :, None]],
+        "F_1n": t["mm1n"][rt_mat, s_ip1[:, None, :], s_im1[:, :, None]],
+        "F_23": t["mm23"][rt_mat, s_ip1[:, None, :], s_im1[:, :, None]],
+        "F_tau": tau_factor(rt_mat, t),
+        "G_gen": t["mmI"][pt, s_ip1[:, :, None], s_im1[:, None, :]],
+        "G_1n": t["mm1n"][pt, s_ip1[:, :, None], s_im1[:, None, :]],
+        "G_23": t["mm23"][pt, s_ip1[:, :, None], s_im1[:, None, :]],
+        "G_tau": tau_factor(pt, t),
+    }
+
+
+def exterior_factor(S, pt, n, t):
+    """ext_m (B, Lp, Lp): the exterior-loop factor of pair (i, j), its
+    dangles on the bases outside it and its terminal AU factor."""
+    Lp = S.shape[1]
+    ii = torch.arange(Lp, device=S.device)
+    nb = n.long()[:, None]
+    i_g = ii[:, None]
+    j_g = ii[None, :]
+    s5g = torch.where(i_g > 1, S[:, (i_g - 1).clamp(0, Lp - 1)], 0)   # (B, Lp, 1)
+    s3g = torch.where(j_g < nb[:, :, None], S[:, (j_g + 1).clamp(0, Lp - 1)], 0)  # (B, 1, Lp)
+    both_g = (i_g > 1) & (j_g < nb[:, :, None])
+    return torch.where(
+        both_g,
+        t["mmExt"][pt, s5g, s3g],
+        torch.where(
+            i_g > 1, t["d5"][pt, s5g],
+            torch.where(j_g < nb[:, :, None], t["d3"][pt, s3g], 1.0),
+        ),
+    ) * tau_factor(pt, t)
+
+
+def mccaskill_fast(S, pt, allow_pair, allow_unpaired, n, sc, codes, tabs, stage=None,
+                   parts=False):
     """Batched inside/outside.
 
     S (B, L+2) base codes, pt (B, L+2, L+2) pair types, allow_pair
@@ -59,6 +140,10 @@ def mccaskill_fast(S, pt, allow_pair, allow_unpaired, n, sc, codes, tabs):
     sc (B,) float32 per-base scale, codes = (tri, tetra, hexa) k-mer codes
     (B, L+2) each, tabs = `mccaskill._fast_tabs` tensors.
     Returns (pout (B, L+2, L+2) pair probabilities, Q (B,)).
+
+    stage: called with "inside" and "exterior" as those scans end (a
+    timer's marks); parts: also return the inside's qb (B, L+2, L+2) and
+    the exterior chains q1 and qn (B, L+2), as a dict.
     """
     dev = S.device
     f32 = torch.float32
@@ -75,33 +160,18 @@ def mccaskill_fast(S, pt, allow_pair, allow_unpaired, n, sc, codes, tabs):
     bs = t["mlb"] * sc              # (B,)
 
     def tau_of(tpx):
-        return torch.where(tpx > 2, t["tau"], 1.0)
+        return tau_factor(tpx, t)
 
     # ---- one-time precomputes ---------------------------------------------
-    logv = torch.where((ii >= 1) & (ii <= nb) & allow_unpaired, 1.0, 0.0)
-    blocked_pref = torch.cumsum(torch.where(ii >= 1, 1.0 - logv, 0.0), dim=1)
-    seg_len = ii[None, :] - ii[:, None] + 1                     # (Lp, Lp)
-    seg_blocked = blocked_pref[:, None, :] - blocked_pref[:, (ii - 1).clamp(min=0)][:, :, None]
-    seg_ok = (seg_len <= 0) | (seg_blocked == 0)                # (B, Lp, Lp)
-    bs_seg = torch.where(
-        seg_len <= 0, 1.0,
-        torch.where(seg_ok, bs[:, None, None] ** seg_len.to(f32), 0.0),
-    )
+    blocked_pref = blocked_prefix(allow_unpaired, n)
+    seg_len, seg_ok = segments(blocked_pref)
+    bs_seg = bs_segments(seg_len, seg_ok, bs)
 
-    rt_mat = RT[pt]
     s_im1 = S[:, (ii - 1).clamp(0, Lp - 1)]  # S[a-1]
     s_ip1 = S[:, (ii + 1).clamp(0, Lp - 1)]  # S[a+1]
-
-    # inner-side per-cell factors for inner pair (a, b)
-    F_gen = t["mmI"][rt_mat, s_ip1[:, None, :], s_im1[:, :, None]]
-    F_1n = t["mm1n"][rt_mat, s_ip1[:, None, :], s_im1[:, :, None]]
-    F_23 = t["mm23"][rt_mat, s_ip1[:, None, :], s_im1[:, :, None]]
-    F_tau = tau_of(rt_mat)
-    # outer-side per-cell factors (outside pass)
-    G_gen = t["mmI"][pt, s_ip1[:, :, None], s_im1[:, None, :]]
-    G_1n = t["mm1n"][pt, s_ip1[:, :, None], s_im1[:, None, :]]
-    G_23 = t["mm23"][pt, s_ip1[:, :, None], s_im1[:, None, :]]
-    G_tau = tau_of(pt)
+    fac = side_factors(S, pt, t)
+    F_gen, F_1n, F_23, F_tau = (fac[k] for k in ("F_gen", "F_1n", "F_23", "F_tau"))
+    G_gen, G_1n, G_23, G_tau = (fac[k] for k in ("G_gen", "G_1n", "G_23", "G_tau"))
 
     # left-diag layouts: out[RP + dd, i] = M[i, i + dd]
     dd_g = ii[:, None]
@@ -311,20 +381,11 @@ def mccaskill_fast(S, pt, allow_pair, allow_unpaired, n, sc, codes, tabs):
         QL_tau[:, d + RP] = qb_new * ldiag_row(FL_tau, d)
         qm1_prev = qm1_new
 
+    if stage is not None:
+        stage("inside")
+
     # =========================== EXTERIOR ==================================
-    i_g = ii[:, None]
-    j_g = ii[None, :]
-    s5g = torch.where(i_g > 1, S[:, (i_g - 1).clamp(0, Lp - 1)], 0)   # (B, Lp, 1)
-    s3g = torch.where(j_g < nb[:, :, None], S[:, (j_g + 1).clamp(0, Lp - 1)], 0)  # (B, 1, Lp)
-    both_g = (i_g > 1) & (j_g < nb[:, :, None])
-    ext_m = torch.where(
-        both_g,
-        t["mmExt"][pt, s5g, s3g],
-        torch.where(
-            i_g > 1, t["d5"][pt, s5g],
-            torch.where(j_g < nb[:, :, None], t["d3"][pt, s3g], 1.0),
-        ),
-    ) * tau_of(pt)
+    ext_m = exterior_factor(S, pt, n, t)
     qb_ext = qb_mat * ext_m
 
     q1 = zeros(Lp)
@@ -345,6 +406,8 @@ def mccaskill_fast(S, pt, allow_pair, allow_unpaired, n, sc, codes, tabs):
         val = qn[:, i + 1] * sc * gate_i + stems
         qn[:, i] = torch.where(i <= n, val, qn[:, i])
     Q = q1[torch.arange(B, device=dev), n.long().clamp(0, Lp - 1)]
+    if stage is not None:
+        stage("exterior")
 
     # =========================== OUTSIDE ===================================
     QBL = to_ldiag(qb_mat)
@@ -472,4 +535,6 @@ def mccaskill_fast(S, pt, allow_pair, allow_unpaired, n, sc, codes, tabs):
         CL_23[:, d + RP] = Cint * ldiag_row(GL_23, d)
         CL_tau[:, d + RP] = Cint * ldiag_row(GL_tau, d)
         CLqb[:, d + RP] = Cint
+    if parts:
+        return pout, Q, {"qb": qb_mat, "q1": q1, "qn": qn}
     return pout, Q

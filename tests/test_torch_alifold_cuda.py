@@ -219,17 +219,22 @@ def _emulate(pk, b_skip):
             if not (d > ak.TURN and T["ap"][_ldo(I, i, i + d)] > 0):
                 inside_rest(i, d, f32(0))
 
-    q1[0] = 1                                               # dafs_alifold_exterior
-    for j in range(1, n + 1):
-        i = np.arange(1, j + 1)
-        acc = np.sum(q1[i - 1] * (qbl[_ldo(I, i, j)] * T["ext"][i * lp + j]), dtype=f32)
-        q1[j] = q1[j - 1] * sc * T["gate_u"][j] + acc
+    # dafs_alifold_exterior: each finished q1[k] (qn[m]) pushed into the
+    # accumulators of the columns after (before) it, in that order
+    cols = np.arange(lp)
+    acc = np.zeros(lp, f32)
+    q1[0] = 1
+    for k in range(n):
+        c = cols[(cols > k) & (cols <= n)]
+        acc[c] = acc[c] + q1[k] * (qbl[_ldo(I, k + 1, c)] * T["ext"][(k + 1) * lp + c])
+        q1[k + 1] = q1[k] * sc * T["gate_u"][k + 1] + acc[k + 1]
     q[0] = q1[n]
+    acc = np.zeros(lp, f32)
     qn[n + 1] = 1
-    for i in range(n, 0, -1):
-        j = np.arange(i, n + 1)
-        acc = np.sum(qbl[_ldo(I, i, j)] * T["ext"][i * lp + j] * qn[j + 1], dtype=f32)
-        qn[i] = qn[i + 1] * sc * T["gate_u"][i] + acc
+    for m in range(n + 1, 1, -1):
+        c = cols[(cols >= 1) & (cols <= m - 1)]
+        acc[c] = acc[c] + qbl[_ldo(I, c, m - 1)] * T["ext"][c * lp + m - 1] * qn[m]
+        qn[m - 1] = qn[m] * sc * T["gate_u"][m - 1] + acc[m - 1]
 
     for d in range(n - 1, 0, -1):                           # dafs_alifold_outside
         for i in pairs[pair_off[d] : pair_off[d + 1]]:

@@ -18,8 +18,8 @@ import torch
 
 import chip_smoke
 from dafs_tpu_torch.ops import (
-    alifold, alifold_cuda, contrafold, cuda_lib, nussinov, nussinov_cuda, nw, nw_cuda, paircrf,
-    pairhmm, pairhmm_cuda,
+    alifold, alifold_cuda, contrafold, cuda_lib, mccaskill, mccaskill_cuda, nussinov,
+    nussinov_cuda, nw, nw_cuda, paircrf, pairhmm, pairhmm_cuda,
 )
 from dafs_tpu_torch.ops import alifold_kernel as ak
 
@@ -51,6 +51,7 @@ def _decoder_args(dev, rng, L=64):
     (pairhmm_cuda, "FORWARD"), (pairhmm_cuda, "BACKWARD"), (pairhmm_cuda, "POSTERIOR"),
     (nussinov_cuda, "DECODE"), (nw_cuda, "DECODE"),
     (alifold_cuda, "INSIDE"), (alifold_cuda, "EXTERIOR"), (alifold_cuda, "OUTSIDE"),
+    (mccaskill_cuda, "INSIDE"), (mccaskill_cuda, "EXTERIOR"), (mccaskill_cuda, "OUTSIDE"),
 ])
 def test_broken_library_raises(module, attr, dev, monkeypatch):
     """A CUDA tensor goes to the kernel or raises: a wrapper whose library
@@ -70,6 +71,8 @@ def test_broken_library_raises(module, attr, dev, monkeypatch):
             nussinov.decode(sm, lens)
         elif module is nw_cuda:
             nw.decode(*nw_args)
+        elif module is mccaskill_cuda:
+            mccaskill.batch_bp_posteriors_fast(["GGGGAAAACCCC", "GCGCUUCGGCGCAA"], 0.0, dev)
         else:
             alifold.Alifold(0.0).consensus(["GGGC-AAAGCCC", "GG-CAAA-GCCC"], dev)
     assert broken.launches == 0
@@ -604,3 +607,59 @@ def test_fold_rows_do_not_depend_on_the_batch(family, shards, dev):
         got = fold.batch_bp_posteriors(seqs, torch.device("cuda", 0))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
+
+
+def _fold_cases():
+    r5 = [f.seq for f in chip_smoke.read_fasta("RF00005_0.fa")]
+    r17 = [f.seq for f in chip_smoke.read_fasta("RF00017_4.fa")]
+    con_seqs, cons = chip_smoke.refold_constraints("rf00005_default_tpu.txt")
+    rows17 = chip_smoke.read_snapshot("rf00017_default_tpu.txt")[3]
+    return {
+        "RF00005": dict(seqs=r5), "RF00017": dict(seqs=r17, reps=1), "B 1": dict(seqs=r5[:1]),
+        "constrained": dict(seqs=con_seqs, cons=cons), "Vienna": dict(seqs=r5[:4], bl=False),
+        "overflowing start": dict(seqs=r5[:3], start="over"),
+        "n 1056": dict(seqs=[(r.replace("-", "") * 4)[:1056] for r in rows17[:2]],
+                       start="stable", reps=1),
+    }
+
+
+@pytest.mark.parametrize("case", ["RF00005", "RF00017", "B 1", "constrained", "Vienna",
+                                  "overflowing start", "n 1056"])
+def test_fold_kernels_match_plain(case, dev):
+    """The fold kernels against the plain McCaskill on the card, through the
+    pf-scale ladder (`chip_smoke.fold_case`): the same attempts and readings,
+    pout within rtol 2e-4 / atol 1e-6 and Q within rtol 2e-4, each kernel
+    against the plain step, one launch a kernel an attempt, two runs
+    bit-equal."""
+    rows = chip_smoke.fold_case(case, dev, **_fold_cases()[case])
+    assert set(rows) == set(chip_smoke.FOLD)
+
+
+def test_fold_wrapper_rejects_bad_inputs(dev):
+    """A CPU bucket, a dtype, a shape, a layout or a device that the kernels
+    do not take raises; so do CUDA tensors without the bucket's prepare."""
+    from dafs_tpu_torch import params
+
+    t = lambda a, d: torch.from_numpy(a).to(d)  # noqa: E731
+    S, PT, AP, AU, ns = mccaskill.bucket_inputs(["GGGGAAAACCCC", "GCGCUUCGGCGCAA"], 32, 2)
+
+    def prep_on(d):
+        return mccaskill_cuda.prepare(t(S, d), t(PT, d), t(AP, d), t(AU, d), t(ns, d),
+                                      mccaskill.kmer_codes(t(S, d)),
+                                      params.to_device(mccaskill._fast_tabs(True), d))
+
+    sc = np.full(2, np.exp(-0.6), np.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        mccaskill_cuda.mccaskill(prep_on("cpu"), torch.from_numpy(sc))
+    pk = mccaskill_cuda.pack(prep_on(dev), torch.from_numpy(sc).to(dev))
+    for field, change, match in (
+        ("cellf", lambda x: x.double(), "float32"), ("code", lambda x: x.int(), "uint8"),
+        ("pout", lambda x: x[:, :-1], "pout"), ("bs_seg", lambda x: x.transpose(1, 2), "contiguous"),
+        ("nlen", lambda x: x.cpu(), "nlen"),
+    ):
+        bad = dict(pk, tensors=dict(pk["tensors"], **{field: change(pk["tensors"][field])}))
+        with pytest.raises(ValueError, match=match):
+            mccaskill_cuda.launch_args(bad)
+    with pytest.raises(ValueError, match="prepare"):
+        mccaskill.fold_attempt(tuple(t(a, dev) for a in (S, PT, AP, AU, ns)), pk["tensors"]["sc"],
+                               mccaskill.kmer_codes(t(S, dev)), None)

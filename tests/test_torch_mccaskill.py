@@ -36,7 +36,7 @@ def _first_q(seq):
     L = t_mc._round_up(len(seq), 32)
     s, pt, ap, au = t_mc._prepare(seq, L, None)
     t = lambda a: torch.from_numpy(np.asarray(a)[None])  # noqa: E731
-    codes = tuple(t(t_mc._kmer_codes(s, k, L)) for k in (5, 6, 8))
+    codes = t_mc.kmer_codes(t(s))
     _, Q = t_mk.mccaskill_fast(
         t(s), t(pt), t(ap), t(au), torch.tensor([len(seq)], dtype=torch.int32),
         torch.tensor([np.exp(-0.6)], dtype=torch.float32), codes,
@@ -61,6 +61,20 @@ def test_batch_matches_jax_with_retry():
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, **TOL)
     assert got[0].max() > 0.5
+
+
+def test_kmer_codes_match_jax():
+    """The k-mer codes, built with torch, equal `dafs_tpu`'s numpy ones, Ns
+    and the sequence's end included."""
+    rng = np.random.default_rng(4)
+    seqs = [_rna(rng, n) for n in (5, 17, 40)] + ["GGNGAAACCNCUUCGGAN", "ACGUN"]
+    L = 64
+    S = np.stack([t_mc._prepare(s, L, None)[0] for s in seqs])
+    got = t_mc.kmer_codes(torch.from_numpy(S))
+    for ci, k in enumerate((5, 6, 8)):
+        want = np.stack([j_mc._kmer_codes(S[b], k, L) for b in range(len(seqs))])
+        np.testing.assert_array_equal(got[ci].numpy(), want)
+        assert got[ci].dtype == torch.int32 and want.any()
 
 
 def test_buckets_and_threshold_match_jax():
