@@ -1,0 +1,195 @@
+"""The reference's family pipeline: what `dafs_tpu_torch.pipeline.Dafs.run`
+computes for one family, stage by stage, from the same records.
+
+`Reference(options, fold_model, align_model, device)` holds the options of
+one configuration.  `posteriors(seqs)` gives the fold's and the aligner's
+posteriors after PCT and the similarity matrix; `merge_inputs` the averaged
+(and consensus-mixed) inputs of one merge; `final_p` the final structure's
+input; `replay_dd` the device DD loop on a layer of merges; `decode` the
+final structure of an input.  Every
+function reads only its arguments and the parameter files.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import numpy as np
+import torch
+
+from portbench.reference import (
+    alifold, consistency, dd, guide_tree, mccaskill, nussinov, pairhmm, projection,
+)
+from portbench.reference.typedefs import CUTOFF, AlnRow
+
+
+@dataclasses.dataclass
+class Record:
+    name: str
+    seq: str
+
+
+class Reference:
+    def __init__(self, options: dict, fold_model: str, align_model: str, device,
+                 tf32: bool = False):
+        self.o = dict(options)
+        # float32 matrix products in full precision; TF32 only for the
+        # control (`check.control_numbers`)
+        self.tf32 = tf32
+        self.o.setdefault("th_s1", self.o["th_s"])
+        self.fold_model = fold_model
+        self.align_model = align_model
+        self.device = torch.device(device)
+        # the consensus takes the BL* parameters exactly under "Boltzmann"
+        self.alifold = alifold.Alifold(0.0, bl=fold_model == "Boltzmann")
+
+    # -- fold, align, similarity, PCT -------------------------------------
+
+    def _fold(self, seqs):
+        """(N, L, L) posteriors above CUTOFF; the McCaskill run's own
+        unthresholded posteriors serve the consensus of one sequence."""
+        if self.fold_model in ("Boltzmann", "Vienna"):
+            posts = mccaskill.batch_bp_posteriors_fast(
+                seqs, 0.0, self.device, bl=self.fold_model == "Boltzmann")
+            self.alifold.leaves = dict(zip(seqs, posts))
+        else:
+            raise ValueError(f"unknown fold model {self.fold_model!r}")
+        L = max(len(s) for s in seqs)
+        bp = np.zeros((len(seqs), L, L), np.float32)
+        for i, p in enumerate(posts):
+            bp[i, : p.shape[0], : p.shape[1]] = np.where(p > CUTOFF, p, np.float32(0.0))
+        return bp
+
+    def _align(self, seqs):
+        """(N, N, L, L) match posteriors of every pair, transposes below,
+        identity on the diagonal."""
+        N, L = len(seqs), max(len(s) for s in seqs)
+        pairs = [(i, j) for i in range(N) for j in range(i + 1, N)]
+        if self.align_model != "ProbCons":
+            raise ValueError(f"unknown align model {self.align_model!r}")
+        posts = pairhmm.batch_posteriors([seqs[i] for i, _ in pairs], [seqs[j] for _, j in pairs],
+                   self.o["th_a"], self.device)
+        mp = np.zeros((N, N, L, L), np.float32)
+        for (i, j), p in zip(pairs, posts):
+            mp[i, j, : p.shape[0], : p.shape[1]] = p
+            mp[j, i, : p.shape[1], : p.shape[0]] = p.T
+        for i in range(N):
+            mp[i, i][np.arange(len(seqs[i])), np.arange(len(seqs[i]))] = 1.0
+        return mp
+
+    def posteriors(self, seqs: list[str]) -> dict:
+        """bp and mp after PCT, and the similarity matrix, in the order
+        `Dafs.run` takes them (the pair PCT reads the match posteriors
+        before their own PCT)."""
+        with self._precision():
+            lens = [len(s) for s in seqs]
+            bp = self._fold(seqs)
+            mp = self._align(seqs)
+            sim = consistency.similarity_matrix(mp, lens, self.device)
+            if self.o["w_pct_s"] != 0.0:
+                bp = consistency.relax_basepairing_probability(
+                    bp, mp, sim, lens, self.o["w_pct_s"], self.device)
+            if self.o["w_pct_a"] != 0.0:
+                mp = consistency.relax_matching_probability(
+                    mp, sim, lens, self.o["w_pct_a"], self.device)
+        return dict(bp=bp, mp=mp, sim=sim)
+
+    @staticmethod
+    def tree(sim: np.ndarray):
+        return guide_tree.build_tree(sim)
+
+    # -- merges and the final structure -----------------------------------
+
+    @contextlib.contextmanager
+    def _precision(self):
+        """TF32 as this reference computes, restored on exit."""
+        old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = self.tf32
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+    def _avg_bp(self, bp, aln, recs, use_alifold):
+        with self._precision():
+            ali = self.alifold.consensus_bp(aln, recs, self.device) if use_alifold else None
+        return projection.average_basepairing_probability(bp, aln, ali)
+
+    def merge_inputs(self, bp, mp, recs, aln1, aln2):
+        """(p_x, p_y, p_z) of the merge of `aln1` and `aln2`."""
+        use = self.o["use_alifold"]
+        return (self._avg_bp(bp, aln1, recs, use), self._avg_bp(bp, aln2, recs, use),
+                projection.average_matching_probability(mp, aln1, aln2))
+
+    def final_p(self, bp, recs, aln):
+        """The final structure's input: the consensus is always mixed in."""
+        return self._avg_bp(bp, aln, recs, True)
+
+    def replay_dd(self, problems: list, t_cap: int | None = None) -> list:
+        """The device DD of one layer of merges, as `dd.solve_by_dd_batch`
+        solves it, stopped after `t_cap` iterations where given (a merge's
+        iterations do not depend on the cap until it is reached):
+        [(s, x, y, z, iterations, violations)]."""
+        stats: list = []
+        t_max = self.o["t_max"] if t_cap is None else min(t_cap, self.o["t_max"])
+        sols = dd.solve_by_dd_batch(
+            problems, w=self.o["w"], th_s=list(self.o["th_s"]), th_a=self.o["th_a"],
+            eta0=self.o["eta0"], t_max=t_max, device=self.device,
+            update_rule=self.o.get("dd_update", "subgradient"), stats=stats)
+        return [(*sol, *st) for sol, st in zip(sols, stats)]
+
+    def decode(self, p: np.ndarray, th: float) -> np.ndarray:
+        """The final decode's structure of `p` (`Dafs._decode_structure`):
+        ss[i] = j for every pair, -1 elsewhere."""
+        L = p.shape[0]
+        P = -(-L // 32) * 32
+        smp = np.full((P, P), np.float32(0.0 - np.float32(th)), np.float32)
+        smp[:L, :L] = np.float32(p - np.float32(th))
+        _, ss = nussinov.decode(torch.from_numpy(smp[None]).to(self.device),
+                                torch.tensor([L], dtype=torch.int32, device=self.device))
+        return ss[0, :L].cpu().numpy().astype(np.int64)
+
+
+def pairs_of(ss: np.ndarray) -> list[tuple[int, int]]:
+    return [(i, int(j)) for i, j in enumerate(ss) if j > i]
+
+
+def brackets(ss: np.ndarray) -> str:
+    """The bracket string of a decoded structure, as `Dafs._decode_structure`
+    writes it."""
+    s = ["."] * len(ss)
+    for i, j in pairs_of(ss):
+        s[i], s[j] = "(", ")"
+    return "".join(s)
+
+
+def sub_alignment(rows: list[str], ids: list[int]) -> list[AlnRow]:
+    """The alignment of the sequences `ids` that the rows imply: their gap
+    masks, with the columns that are gaps in all of them dropped (a merge
+    only inserts such columns into its children)."""
+    masks = np.array([[c != "-" for c in rows[i]] for i in ids], dtype=bool)
+    keep = masks.any(axis=0)
+    return [AlnRow(i, m[keep]) for i, m in zip(ids, masks)]
+
+
+def leaves_under(tree, node: int) -> list[int]:
+    l, r = tree[node][1]
+    if l == -1:
+        return [node]
+    return leaves_under(tree, l) + leaves_under(tree, r)
+
+
+def layers(tree, n: int) -> list[list[int]]:
+    """The merges of the tree in the order `Dafs._align` solves them: one
+    layer at a time, each the sorted merges whose children are done."""
+    done = set(range(n))
+    pending = set(range(n, 2 * n - 1))
+    out = []
+    while pending:
+        layer = sorted(m for m in pending
+                       if tree[m][1][0] in done and tree[m][1][1] in done)
+        out.append(layer)
+        done |= set(layer)
+        pending -= set(layer)
+    return out
