@@ -110,7 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="capture a torch.profiler trace of the run into DIR "
                         "(a Chrome trace, trace.json; CPU activity, and the "
-                        "card's when the device is one)")
+                        "card's when the device is one) and the program's "
+                        "spans of the same run (spans.json; times in seconds "
+                        "of time.perf_counter())")
     p.add_argument("--save-fold-aux", metavar="FILENAME",
                    help="dump base-pair posteriors")
     p.add_argument("-P", "--param-file", metavar="FILE", default=None,
@@ -201,18 +203,26 @@ def main(argv=None) -> int:
 
 
 def _profiled(d, fa, out_dir):
-    """`d.run(fa)` under torch.profiler; writes `out_dir/trace.json`."""
+    """`d.run(fa)` under torch.profiler and the span recorder
+    (`utils/spans.py`); writes `out_dir/trace.json` and `out_dir/spans.json`
+    (a list of the spans' records)."""
+    import json
+
     import torch
+
+    from dafs_tpu_torch.utils import spans
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     if d.device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(out_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    with spans.record() as recs, torch.profiler.profile(activities=acts) as prof:
         out = d.run(fa)
         if d.device.type == "cuda":
             torch.cuda.synchronize(d.device)
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    with open(os.path.join(out_dir, "spans.json"), "w") as fh:
+        json.dump([sp.as_dict() for sp in recs], fh)
     return out
 
 

@@ -22,8 +22,6 @@ the caller's device, and the inside/outside runs there: the CUDA kernels of
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -33,6 +31,7 @@ from dafs_tpu_torch.ops import alifold_kernel as ak
 from dafs_tpu_torch.ops import energy_params as ep
 from dafs_tpu_torch.ops import mccaskill
 from dafs_tpu_torch.typedefs import AlnRow
+from dafs_tpu_torch.utils import spans
 
 TURN = ep.TURN
 UNIT = 100.0
@@ -255,13 +254,15 @@ def partition(args: tuple, n: int, bsn0, sc0, BCUT: int, loops):
     the plain `alifold_kernel.inside_outside`)
     on `prepare(*args, n, sc, bsn0)` from the per-column scale sc0, scaled
     by 0.8 while Q overflows (or is not finite) and by 1.25 while it
-    underflows, at most 24 attempts.  Returns (pout as numpy (Lp, Lp), Q,
-    the scale that stabilized Q, attempts)."""
+    underflows, at most 24 attempts, each a span "consensus.attempt".
+    Returns (pout as numpy (Lp, Lp), Q, the scale that stabilized Q,
+    attempts)."""
     sc = np.float32(sc0)
     for attempt in range(1, 25):
-        pout, Q = loops(ak.prepare(*args, n, sc, bsn0), n, BCUT=BCUT)
-        Qv = float(Q)
-        pout_h = pout.cpu().numpy()
+        with spans.span("consensus.attempt", sc=float(sc)):
+            pout, Q = loops(ak.prepare(*args, n, sc, bsn0), n, BCUT=BCUT)
+            Qv = float(Q)
+            pout_h = pout.cpu().numpy()
         if np.isfinite(Qv) and 1e-25 < Qv < 1e25 and np.isfinite(pout_h).all():
             return pout_h, Qv, sc, attempt
         if not np.isfinite(Qv) or Qv >= 1e25:
@@ -289,7 +290,8 @@ class Alifold:
     `calls` records one dict per consensus call (n_seq, length, route,
     ladder attempts, host seconds; for the alifold route also the seconds
     of its host prep, `_inputs` and the copies to the device) for the
-    caller's accounting.
+    caller's accounting: the seconds of its spans "consensus.call" and
+    "consensus.prep".
 
     `leaves` maps an ungapped sequence to McCaskill posteriors the caller
     already holds for it under this object's parameter set, before any
@@ -325,49 +327,53 @@ class Alifold:
 
         bcut: raises the computed B-group support bound (never below it),
         capped at the full stencil width 31; for tests of the cut."""
-        t0 = time.perf_counter()
         nseq = len(seqs)
-        if nseq == 1 and "-" not in seqs[0] and "_" not in seqs[0]:
-            # A single ungapped sequence reduces exactly to the McCaskill
-            # partition function: every per-seq loop size equals the column
-            # offset, kTn = kT, the covariance factor is exp(0) = 1, and the
-            # pscore >= MINPSCORE gate admits exactly the canonical pairs.
-            # Vienna's plist 1e-6 cutoff is applied the same way.
-            if constraint is None and seqs[0] in self.leaves:
-                route = "fold stage"
-                pm = self.leaves[seqs[0]].copy()
-                pm[pm <= self.th] = 0.0
+        prep = None
+        with spans.timed("consensus.call", ns=nseq, n=len(seqs[0])) as call:
+            if nseq == 1 and "-" not in seqs[0] and "_" not in seqs[0]:
+                # A single ungapped sequence reduces exactly to the McCaskill
+                # partition function: every per-seq loop size equals the
+                # column offset, kTn = kT, the covariance factor is exp(0) =
+                # 1, and the pscore >= MINPSCORE gate admits exactly the
+                # canonical pairs.  Vienna's plist 1e-6 cutoff is applied the
+                # same way.
+                if constraint is None and seqs[0] in self.leaves:
+                    route = "fold stage"
+                    pm = self.leaves[seqs[0]].copy()
+                    pm[pm <= self.th] = 0.0
+                else:
+                    route = "mccaskill"
+                    pm = mccaskill.batch_bp_posteriors_fast(
+                        seqs, self.th, device, bl=self.bl,
+                        constraints=None if constraint is None else [constraint],
+                    )[0]
+                pm[pm <= 1e-6] = 0.0
+                info = dict(ns=1, n=len(seqs[0]), route=route, attempts=None)
             else:
-                route = "mccaskill"
-                pm = mccaskill.batch_bp_posteriors_fast(
-                    seqs, self.th, device, bl=self.bl,
-                    constraints=None if constraint is None else [constraint],
-                )[0]
-            pm[pm <= 1e-6] = 0.0
-            self.calls.append(dict(ns=1, n=len(seqs[0]), route=route,
-                                   attempts=None, seconds=time.perf_counter() - t0))
-            return pm
-        x = _inputs(seqs, self.bl, constraint)
-        n, L = x["n"], x["L"]
-        BCUT = _bcut(x["S"], n)
-        if bcut is not None:
-            BCUT = max(BCUT, min(ak.SW, bcut))
+                with spans.timed("consensus.prep") as prep:
+                    x = _inputs(seqs, self.bl, constraint)
+                    n, L = x["n"], x["L"]
+                    BCUT = _bcut(x["S"], n)
+                    if bcut is not None:
+                        BCUT = max(BCUT, min(ak.SW, bcut))
 
-        dev = torch.device(device)
-        loops = alifold_cuda.call_loops() if dev.type == "cuda" else ak.inside_outside
-        key = (nseq, L)
-        args = device_args(x, dev)
-        t_prep = time.perf_counter() - t0
-        pout_h, _, sc, attempt = partition(args, n, x["bsn0"], self.sc_cache.get(key, SC0),
-                                        BCUT, loops)
-        self.sc_cache[key] = float(sc)
-        pm = pout_h[1 : n + 1, 1 : n + 1].astype(np.float32)
-        pm[pm <= self.th] = 0.0
-        pm[pm <= 1e-6] = 0.0
-        np.clip(pm, 0.0, 1.0, out=pm)
-        self.calls.append(dict(ns=nseq, n=n, route="alifold", bcut=BCUT,
-                               attempts=attempt, seconds=time.perf_counter() - t0,
-                               prep_seconds=t_prep))
+                    dev = torch.device(device)
+                    loops = alifold_cuda.call_loops() if dev.type == "cuda" else ak.inside_outside
+                    key = (nseq, L)
+                    args = device_args(x, dev)
+                pout_h, _, sc, attempt = partition(args, n, x["bsn0"],
+                                                self.sc_cache.get(key, SC0), BCUT, loops)
+                self.sc_cache[key] = float(sc)
+                pm = pout_h[1 : n + 1, 1 : n + 1].astype(np.float32)
+                pm[pm <= self.th] = 0.0
+                pm[pm <= 1e-6] = 0.0
+                np.clip(pm, 0.0, 1.0, out=pm)
+                info = dict(ns=nseq, n=n, route="alifold", bcut=BCUT, attempts=attempt)
+            call.attrs.update(info)
+        info["seconds"] = call.seconds
+        if prep is not None:
+            info["prep_seconds"] = prep.seconds
+        self.calls.append(info)
         return pm
 
 

@@ -31,11 +31,11 @@ bipartition of the finished alignment at a time with the same solver.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import io
 import sys
-import time
 
 import numpy as np
 import torch
@@ -45,10 +45,20 @@ from dafs_tpu_torch.fasta import Fasta
 from dafs_tpu_torch.models.fold_models import RNAfold
 from dafs_tpu_torch.ops import nussinov
 from dafs_tpu_torch.typedefs import CUTOFF, AlnRow, gapped_seq
+from dafs_tpu_torch.utils import spans
 from dafs_tpu_torch.utils.crand import GlibcRand
 from dafs_tpu_torch.utils.log import logger
 
 F = np.float32
+
+
+@contextlib.contextmanager
+def _phase(phases: dict, name: str):
+    """One phase of `Dafs.run`: a span whose seconds go to `phases[name]`."""
+    with spans.timed(name) as sp:
+        yield
+    phases[name] = sp.seconds
+    logger.info("phase %s: %.2fs", name, sp.seconds)
 
 
 @dataclasses.dataclass
@@ -189,14 +199,16 @@ class Dafs:
         and p_z (src/dafs.cpp:913-934).  The order of the consensus calls is
         the JAX package's (x, its update, y, its update): the pf-scale warm
         start is shared by constrained and unconstrained calls of one shape."""
-        ps = []
-        for aln in (aln1, aln2):
-            p = self._avg_bp(aln, self.o.use_alifold)
-            if self.o.use_bp_update:
-                ss0, str0 = self._decode_structure(p, self.o.th_s)
-                p = self._update_bp(p, ss0, str0, aln, self.o.use_alifold)
-            ps.append(p)
-        p_z = projection.average_matching_probability(self.mp, aln1, aln2)
+        with spans.span("merge.inputs", n1=len(aln1), n2=len(aln2),
+                        L1=int(aln1[0].mask.shape[0]), L2=int(aln2[0].mask.shape[0])):
+            ps = []
+            for aln in (aln1, aln2):
+                p = self._avg_bp(aln, self.o.use_alifold)
+                if self.o.use_bp_update:
+                    ss0, str0 = self._decode_structure(p, self.o.th_s)
+                    p = self._update_bp(p, ss0, str0, aln, self.o.use_alifold)
+                ps.append(p)
+            p_z = projection.average_matching_probability(self.mp, aln1, aln2)
         return ps[0], ps[1], p_z
 
     def _output_verbose(self, x, y, z, aln1, aln2):
@@ -226,9 +238,10 @@ class Dafs:
     @staticmethod
     def _merge_finish(x, y, z, aln1, aln2):
         """Project one solved merge back to (ss, aln) (src/dafs.cpp:944-951)."""
-        aln = projection.project_alignment(aln1, aln2, z)
-        xx, yy = projection.project_secondary_structure(x, y, z)
-        ss = np.where(xx == yy, xx, -1)
+        with spans.span("merge.project"):
+            aln = projection.project_alignment(aln1, aln2, z)
+            xx, yy = projection.project_secondary_structure(x, y, z)
+            ss = np.where(xx == yy, xx, -1)
         return ss, aln
 
     def _solver(self, aln1, aln2, trace):
@@ -255,32 +268,34 @@ class Dafs:
         """One merge (src/dafs.cpp:913-981): of the serial recursion of the
         host solvers, or of refinement.  Returns (s, ss, aln); adds its
         seconds to `phases`."""
-        t0 = time.perf_counter()
-        p_x, p_y, p_z = self._merge_inputs(aln1, aln2)
-        t1 = time.perf_counter()
-        trace = []
-        s, x, y, z = self._solver(aln1, aln2, trace)(
-            p_x, p_y, p_z, len(aln1), len(aln2),
-            w=self.o.w, th_s=list(self.o.th_s), th_a=self.o.th_a,
-            eta0=self.o.eta0, t_max=self.o.t_max,
-        )
-        if trace:
-            self.host_dd.append((len(trace), trace[-1][2]))
-        t2 = time.perf_counter()
-        ss, aln = self._merge_finish(x, y, z, aln1, aln2)
-        t3 = time.perf_counter()
-        self._add_merge_seconds(phases, t1 - t0, t2 - t1, t3 - t2)
+        with spans.timed("merge avg+alifold") as prep:
+            p_x, p_y, p_z = self._merge_inputs(aln1, aln2)
+        with spans.timed("merge DD") as solve:
+            trace = []
+            s, x, y, z = self._solver(aln1, aln2, trace)(
+                p_x, p_y, p_z, len(aln1), len(aln2),
+                w=self.o.w, th_s=list(self.o.th_s), th_a=self.o.th_a,
+                eta0=self.o.eta0, t_max=self.o.t_max,
+            )
+            if trace:
+                self.host_dd.append((len(trace), trace[-1][2]))
+        with spans.timed("merge project") as project:
+            ss, aln = self._merge_finish(x, y, z, aln1, aln2)
+        self._add_merge_seconds(phases, prep, solve, project)
         logger.info(
             "merge N1=%d N2=%d L=%d: avg+alifold %.2fs, solve %.2fs, project %.2fs",
-            len(aln1), len(aln2), len(aln[0].mask), t1 - t0, t2 - t1, t3 - t2,
+            len(aln1), len(aln2), len(aln[0].mask),
+            prep.seconds, solve.seconds, project.seconds,
         )
         return s, ss, aln
 
     @staticmethod
-    def _add_merge_seconds(phases, prep, solve, project):
-        for name, sec in (("merge avg+alifold", prep), ("merge DD", solve),
-                          ("merge project", project)):
-            phases[name] = phases.get(name, 0.0) + sec
+    def _add_merge_seconds(phases, *parts):
+        """Adds the seconds of a merge's (or a layer's) three parts, the
+        spans "merge avg+alifold", "merge DD" and "merge project", to the
+        phases of those names."""
+        for sp in parts:
+            phases[sp.name] = phases.get(sp.name, 0.0) + sp.seconds
 
     def _can_batch_merges(self) -> bool:
         """The layered batched solver covers the device DD only; the ILP,
@@ -325,31 +340,31 @@ class Dafs:
                 n for n in sorted(pending)
                 if self.tree[n][1][0] in state and self.tree[n][1][1] in state
             ]
-            t0 = time.perf_counter()
-            alns = [
-                (state[self.tree[n][1][0]][2], state[self.tree[n][1][1]][2])
-                for n in layer
-            ]
-            probs = [
-                (*self._merge_inputs(a1, a2), len(a1), len(a2)) for a1, a2 in alns
-            ]
-            t1 = time.perf_counter()
-            sols = dd.solve_by_dd_batch(
-                probs,
-                w=self.o.w, th_s=list(self.o.th_s), th_a=self.o.th_a,
-                eta0=self.o.eta0, t_max=self.o.t_max, device=self.device,
-                update_rule=self.o.dd_update, stats=self.device_dd,
-            )
-            t2 = time.perf_counter()
-            for n, (s, x, y, z), (aln1, aln2) in zip(layer, sols, alns):
-                ss, aln = self._merge_finish(x, y, z, aln1, aln2)
-                state[n] = (s, ss, aln)
-                pending.discard(n)
-            t3 = time.perf_counter()
-            self._add_merge_seconds(phases, t1 - t0, t2 - t1, t3 - t2)
+            with spans.span("merge.layer", merges=len(layer)):
+                with spans.timed("merge avg+alifold") as prep:
+                    alns = [
+                        (state[self.tree[n][1][0]][2], state[self.tree[n][1][1]][2])
+                        for n in layer
+                    ]
+                    probs = [
+                        (*self._merge_inputs(a1, a2), len(a1), len(a2)) for a1, a2 in alns
+                    ]
+                with spans.timed("merge DD") as solve:
+                    sols = dd.solve_by_dd_batch(
+                        probs,
+                        w=self.o.w, th_s=list(self.o.th_s), th_a=self.o.th_a,
+                        eta0=self.o.eta0, t_max=self.o.t_max, device=self.device,
+                        update_rule=self.o.dd_update, stats=self.device_dd,
+                    )
+                with spans.timed("merge project") as project:
+                    for n, (s, x, y, z), (aln1, aln2) in zip(layer, sols, alns):
+                        ss, aln = self._merge_finish(x, y, z, aln1, aln2)
+                        state[n] = (s, ss, aln)
+                        pending.discard(n)
+            self._add_merge_seconds(phases, prep, solve, project)
             logger.info(
                 "merge layer (%d merges): avg+alifold %.2fs, solve %.2fs, project %.2fs",
-                len(layer), t1 - t0, t2 - t1, t3 - t2,
+                len(layer), prep.seconds, solve.seconds, project.seconds,
             )
         return state[node]
 
@@ -402,81 +417,75 @@ class Dafs:
     # -- main -------------------------------------------------------------
 
     def run(self, fa: list[Fasta]) -> str:
+        with spans.span("family", n=len(fa), residues=sum(len(f) for f in fa)):
+            return self._run(fa)
+
+    def _run(self, fa: list[Fasta]) -> str:
         phases: dict[str, float] = {}
-        t0 = time.perf_counter()
-
-        def _phase(name):
-            nonlocal t0
-            t1 = time.perf_counter()
-            phases[name] = t1 - t0
-            logger.info("phase %s: %.2fs", name, t1 - t0)
-            t0 = t1
-
         self.fa = fa
         self.host_dd, self.device_dd, self.refinements = [], [], []
         lens = [len(f) for f in fa]
         out = io.StringIO()
 
-        # A group of one ungapped sequence takes its consensus from this same
-        # McCaskill run, before the fold threshold (the single-sequence
-        # route of ops/alifold.py), when the fold model is McCaskill under
-        # the consensus's parameter set.
-        seqs = [f.seq for f in fa]
-        posts = None
-        if (self.alifold is not None and isinstance(self.s_model, RNAfold)
-                and self.alifold.bl == self.s_model.bl):
-            posts = self.s_model.batch_bp_posteriors(seqs, self.device, th=0.0)
-        self.bp = self.s_model.all_seqs(fa, self.device, posts)
-        if self.alifold is not None:
-            self.alifold.leaves = dict(zip(seqs, posts or []))
-            first_call = len(self.alifold.calls)
-        _phase("fold")
-        self.mp = self.a_model.all_pairs(fa, self.device)
-        _phase("align")
+        with _phase(phases, "fold"):
+            # A group of one ungapped sequence takes its consensus from this
+            # same McCaskill run, before the fold threshold (the
+            # single-sequence route of ops/alifold.py), when the fold model
+            # is McCaskill under the consensus's parameter set.
+            seqs = [f.seq for f in fa]
+            posts = None
+            if (self.alifold is not None and isinstance(self.s_model, RNAfold)
+                    and self.alifold.bl == self.s_model.bl):
+                posts = self.s_model.batch_bp_posteriors(seqs, self.device, th=0.0)
+            self.bp = self.s_model.all_seqs(fa, self.device, posts)
+            if self.alifold is not None:
+                self.alifold.leaves = dict(zip(seqs, posts or []))
+                first_call = len(self.alifold.calls)
+        with _phase(phases, "align"):
+            self.mp = self.a_model.all_pairs(fa, self.device)
         if self.o.save_fold_aux or self.o.save_align_aux:
-            self._save_aux(lens)
-            _phase("save aux")
+            with _phase(phases, "save aux"):
+                self._save_aux(lens)
         if self.o.w_pct_f != 0.0:
-            self.mp = consistency.relax_fourway_consistency(
-                self.mp, self.bp, lens, self.o.w_pct_f, self.device
-            )
-            _phase("four-way PCT")
-        sim = consistency.similarity_matrix(self.mp, lens, self.device)
-        _phase("similarity")
-        if self.o.w_pct_s != 0.0:
-            self.bp = consistency.relax_basepairing_probability(
-                self.bp, self.mp, sim, lens, self.o.w_pct_s, self.device
-            )
-        if self.o.w_pct_a != 0.0:
-            self.mp = consistency.relax_matching_probability(
-                self.mp, sim, lens, self.o.w_pct_a, self.device
-            )
-        _phase("PCT")
+            with _phase(phases, "four-way PCT"):
+                self.mp = consistency.relax_fourway_consistency(
+                    self.mp, self.bp, lens, self.o.w_pct_f, self.device
+                )
+        with _phase(phases, "similarity"):
+            sim = consistency.similarity_matrix(self.mp, lens, self.device)
+        with _phase(phases, "PCT"):
+            if self.o.w_pct_s != 0.0:
+                self.bp = consistency.relax_basepairing_probability(
+                    self.bp, self.mp, sim, lens, self.o.w_pct_s, self.device
+                )
+            if self.o.w_pct_a != 0.0:
+                self.mp = consistency.relax_matching_probability(
+                    self.mp, sim, lens, self.o.w_pct_a, self.device
+                )
         self.tree = guide_tree.build_tree(sim)
         tree_line = guide_tree.print_tree(self.tree, [f.name for f in fa])
         out.write(tree_line + "\n")
 
         s, ss, aln = self._align(len(self.tree) - 1, phases)
-        t0 = time.perf_counter()
-        # each refinement merge's own seconds stay out of the merge phases
-        for _ in range(self.o.n_refinement):
-            s_new, ss_new, aln_new = self._refine(aln, {})
-            self.refinements[-1].update(s=float(s), s_new=float(s_new))
-            if s_new > s:
-                s, ss, aln = s_new, ss_new, aln_new
         if self.o.n_refinement:
-            _phase("refinement")
+            # each refinement merge's own seconds stay out of the merge phases
+            with _phase(phases, "refinement"):
+                for _ in range(self.o.n_refinement):
+                    s_new, ss_new, aln_new = self._refine(aln, {})
+                    self.refinements[-1].update(s=float(s), s_new=float(s_new))
+                    if s_new > s:
+                        s, ss, aln = s_new, ss_new, aln_new
 
         # final common structure (src/dafs.cpp:1857-1873); use_alifold1_ is
         # always true in the reference
-        p = self._avg_bp(aln, use_alifold=True)
-        _phase("final avg_bp (+alifold)")
+        with _phase(phases, "final avg_bp (+alifold)"):
+            p = self._avg_bp(aln, use_alifold=True)
         if self.o.use_bp_update1:
-            ss0, str0 = self._decode_structure(p, self.o.th_s1)
-            p = self._update_bp(p, ss0, str0, aln, use_alifold=True)
-            _phase("final bp-update")
-        ss, sstr = self._decode_structure(p, self.o.th_s1)
-        _phase("final decode")
+            with _phase(phases, "final bp-update"):
+                ss0, str0 = self._decode_structure(p, self.o.th_s1)
+                p = self._update_bp(p, ss0, str0, aln, use_alifold=True)
+        with _phase(phases, "final decode"):
+            ss, sstr = self._decode_structure(p, self.o.th_s1)
 
         aln_sorted = sorted(aln, key=lambda r: r.seq_id)
         out.write(">SS_cons\n")

@@ -3,7 +3,8 @@
 Host-side mirrors of DAFS::average_matching_probability (src/dafs.cpp:513-559),
 average_basepairing_probability (:561-607), project_alignment (:766-825) and
 project_secondary_structure (:827-873).  These run per merge step on small
-matrices; numpy fancy indexing replaces the reference's sparse walks.
+matrices; numpy fancy indexing replaces the reference's sparse walks.  Each
+average is a span "projection.average" (`utils/spans.py`).
 
 Copied from the JAX package's module of the same name: importing any
 `dafs_tpu` module imports JAX (its package `__init__` does), and the port
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from dafs_tpu_torch.typedefs import CUTOFF, AlnRow
+from dafs_tpu_torch.utils import spans
 
 F = np.float32
 
@@ -26,15 +28,16 @@ def average_matching_probability(
     L1 = int(aln1[0].mask.shape[0])
     L2 = int(aln2[0].mask.shape[0])
     N1, N2 = len(aln1), len(aln2)
-    p = np.zeros((L1, L2), dtype=np.float32)
-    for r1 in aln1:
-        idx1 = np.nonzero(r1.mask)[0]
-        for r2 in aln2:
-            idx2 = np.nonzero(r2.mask)[0]
-            m = mp[r1.seq_id, r2.seq_id][: len(idx1), : len(idx2)]
-            p[np.ix_(idx1, idx2)] += np.float32(m / F(N1 * N2))
-    p[p <= CUTOFF] = 0.0
-    np.minimum(p, 1.0, out=p)
+    with spans.span("projection.average", kind="mp", n1=N1, n2=N2, L1=L1, L2=L2):
+        p = np.zeros((L1, L2), dtype=np.float32)
+        for r1 in aln1:
+            idx1 = np.nonzero(r1.mask)[0]
+            for r2 in aln2:
+                idx2 = np.nonzero(r2.mask)[0]
+                m = mp[r1.seq_id, r2.seq_id][: len(idx1), : len(idx2)]
+                p[np.ix_(idx1, idx2)] += np.float32(m / F(N1 * N2))
+        p[p <= CUTOFF] = 0.0
+        np.minimum(p, 1.0, out=p)
     return p
 
 
@@ -47,17 +50,18 @@ def average_basepairing_probability(
     RNAalifold consensus BP matrix (passed in by the caller)."""
     L = int(aln[0].mask.shape[0])
     N = len(aln)
-    p = np.zeros((L, L), dtype=np.float32)
-    for r in aln:
-        idx = np.nonzero(r.mask)[0]
-        b = bp[r.seq_id][: len(idx), : len(idx)]
-        p[np.ix_(idx, idx)] += np.float32(b / F(N))
-    if alifold_bp is not None:
-        p += alifold_bp
-        iu = np.triu_indices(L, 1)
-        p[iu] = np.float32(p[iu] / F(2.0))
-    p[np.tril_indices(L, 0)] = 0.0
-    p[p <= CUTOFF] = 0.0
+    with spans.span("projection.average", kind="bp", n=N, L=L):
+        p = np.zeros((L, L), dtype=np.float32)
+        for r in aln:
+            idx = np.nonzero(r.mask)[0]
+            b = bp[r.seq_id][: len(idx), : len(idx)]
+            p[np.ix_(idx, idx)] += np.float32(b / F(N))
+        if alifold_bp is not None:
+            p += alifold_bp
+            iu = np.triu_indices(L, 1)
+            p[iu] = np.float32(p[iu] / F(2.0))
+        p[np.tril_indices(L, 0)] = 0.0
+        p[p <= CUTOFF] = 0.0
     return p
 
 

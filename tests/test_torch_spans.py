@@ -1,0 +1,206 @@
+"""The span recorder (`dafs_tpu_torch/utils/spans.py`) on small families on
+the CPU: off it records nothing; on, its spans nest, carry their family's
+id, give exactly the seconds of `Result.phase_seconds` and
+`consensus_calls`, count the DD loop's bodies, and leave the results bit
+for bit as they are with recording off.  Each case runs under one DD
+update rule of the device loop, or the host loop (`dd_host`)."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from dafs_tpu_torch import cli, pipeline
+from dafs_tpu_torch.fasta import Fasta
+from dafs_tpu_torch.models import align_models, fold_models
+from dafs_tpu_torch.ops import alifold
+from dafs_tpu_torch.typedefs import CUTOFF
+from dafs_tpu_torch.utils import spans
+
+torch.set_num_threads(1)
+
+# four mutated copies of one 36-nt hairpin-rich sequence
+FAMILY = [
+    ("a", "GGGCGCAAGCCUAGCUCAGUUGGUAGAGCGCCUGCU"),
+    ("b", "GGGCGCUUGCCUAGCUCAGUGGUAGAGCGCCUGCUU"),
+    ("c", "GGACGCAAGCCUAGCUCAGGUUGGUAGAGCACCUGC"),
+    ("d", "GGGCGCAAGCUAGCUCAGUUGGUAAGAGCGCCUGCA"),
+]
+CASES = {
+    "subgradient": dict(dd_update="subgradient"),
+    "adagrad": dict(dd_update="adagrad"),
+    "adam": dict(dd_update="adam"),
+    "host": dict(dd_host=True),
+}
+_RUNS: dict = {}
+
+
+def _dafs(case):
+    return pipeline.Dafs(align_models.ProbCons(0.01), fold_models.RNAfold(True, CUTOFF),
+                         pipeline.Options(**CASES[case]),
+                         alifold_model=alifold.Alifold(0.0, bl=True), device="cpu")
+
+
+def _run(case, record):
+    """(result, spans or None) of one run of FAMILY, kept for the module."""
+    key = (case, record)
+    if key not in _RUNS:
+        d = _dafs(case)
+        fa = [Fasta(n, s) for n, s in FAMILY]
+        if record:
+            with spans.record() as recs:
+                d.run(fa)
+        else:
+            recs = None
+            d.run(fa)
+        _RUNS[key] = (d.result, recs)
+    return _RUNS[key]
+
+
+def _under(recs, sp, name):
+    """Whether `sp` lies under a span named `name`."""
+    while sp.parent is not None:
+        sp = recs[sp.parent]
+        if sp.name == name:
+            return True
+    return False
+
+
+def test_off_records_nothing(monkeypatch):
+    entered = []
+    enter = spans.Span.__enter__
+
+    def keep(self):
+        entered.append(self)
+        return enter(self)
+
+    monkeypatch.setattr(spans.Span, "__enter__", keep)
+    d = _dafs("subgradient")
+    d.run([Fasta(n, s) for n, s in FAMILY])
+    # only the timed spans, whose seconds the results keep, read the clock
+    assert entered and {sp.name for sp in entered} <= (
+        set(d.result["phase_seconds"]) | {"consensus.call", "consensus.prep"})
+    assert all(sp.id is None and not sp.counts for sp in entered)
+    assert spans.span("x") is spans.span("y") and not spans.recording()
+
+
+def test_recorder_nests_counts_and_does_not_nest_twice():
+    with spans.record() as recs:
+        with spans.span("a", k=1) as a:
+            spans.count("n")
+            with spans.span("b") as b:
+                spans.count("n", 2)
+                spans.count("n", 3)
+        with spans.timed("c"):
+            pass
+        with pytest.raises(RuntimeError):
+            with spans.record():
+                pass
+    assert [s.name for s in recs] == ["a", "b", "c"]
+    assert (a.id, a.parent, a.family, a.attrs, a.counts) == (0, None, 0, {"k": 1}, {"n": 1})
+    assert (b.id, b.parent, b.family, b.counts) == (1, 0, 0, {"n": 5})
+    assert recs[2].family == 2 and a.t0 <= b.t0 <= b.t1 <= a.t1 <= recs[2].t0
+    assert json.loads(json.dumps(a.as_dict()))["counts"] == {"n": 1}
+    spans.count("n")  # off: returns at once
+    assert not spans.recording()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_spans_nest_in_their_family(case):
+    res, recs = _run(case, True)
+    roots = [sp for sp in recs if sp.parent is None]
+    assert [sp.name for sp in roots] == ["family"]
+    assert roots[0].attrs == {"n": len(FAMILY), "residues": sum(len(s) for _, s in FAMILY)}
+    for sp in recs:
+        assert sp.family == roots[0].id and sp.t0 <= sp.t1
+        if sp.parent is not None:
+            up = recs[sp.parent]
+            assert up.t0 <= sp.t0 and sp.t1 <= up.t1, (up.name, sp.name)
+    names = {sp.name for sp in recs}
+    want = {"merge.inputs", "merge.project", "projection.average", "consensus.call",
+            "consensus.prep", "consensus.attempt", "dd.solve", "dd.loop"}
+    if case != "host":
+        want |= {"merge.layer", "dd.prep", "dd.upload", "dd.check", "dd.readback"}
+    assert want <= names
+    for sp in recs:
+        if sp.name == "dd.upload":
+            assert sp.counts["h2d_bytes"] > 0
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_phase_spans_give_phase_seconds(case):
+    res, recs = _run(case, True)
+    phases = res["phase_seconds"]
+    for name, sec in phases.items():
+        got = 0.0
+        for sp in recs:
+            if sp.name == name and not _under(recs, sp, "refinement"):
+                got += sp.seconds
+        assert got == sec, name
+    assert {sp.name for sp in recs if sp.parent == 0} - {"merge.layer"} <= set(phases)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_consensus_spans_match_consensus_calls(case):
+    res, recs = _run(case, True)
+    calls = [sp for sp in recs if sp.name == "consensus.call"]
+    assert len(calls) == len(res["consensus_calls"]) > 0
+    for sp, c in zip(calls, res["consensus_calls"]):
+        assert sp.seconds == c["seconds"]
+        assert {k: sp.attrs[k] for k in ("ns", "n", "route", "attempts")} == {
+            k: c[k] for k in ("ns", "n", "route", "attempts")}
+        kids = [k for k in recs if k.parent == sp.id]
+        if c["route"] == "alifold":
+            assert sp.attrs["bcut"] == c["bcut"]
+            assert [k.name for k in kids] == (
+                ["consensus.prep"] + ["consensus.attempt"] * c["attempts"])
+            assert kids[0].seconds == c["prep_seconds"]
+        else:
+            assert not kids
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_dd_loop_counts_its_bodies(case):
+    res, recs = _run(case, True)
+    loops = [sp for sp in recs if sp.name == "dd.loop"]
+    assert all(recs[sp.parent].name == "dd.solve" for sp in loops)
+    if case == "host":
+        assert [sp.counts["iterations"] for sp in loops] == [t for t, _ in res["host_dd"]]
+        return
+    ts = [t for t, _ in res["device_dd"]]
+    k = 0
+    for sp in loops:
+        B = sp.attrs["B"]
+        assert len(sp.attrs["lens"]) == B
+        top = max(ts[k: k + B])
+        k += B
+        assert top <= sp.counts["iterations"] <= top + 7
+        checks = [c for c in recs if c.parent == sp.id]
+        assert checks and {c.name for c in checks} == {"dd.check"}
+    assert k == len(ts)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_recording_leaves_results_bit_equal(case):
+    off, _ = _run(case, False)
+    on, _ = _run(case, True)
+    assert on["ss_cons"] == off["ss_cons"] and on["rows"] == off["rows"]
+    assert on["score"] == off["score"] and on["tree"] == off["tree"]
+    assert on["device_dd"] == off["device_dd"] and on["host_dd"] == off["host_dd"]
+    assert np.array_equal(on["similarity"], off["similarity"])
+
+
+def test_profile_writes_spans(tmp_path, capsys):
+    """`--profile DIR` writes the spans of the profiled run as spans.json."""
+    fa = tmp_path / "f.fa"
+    fa.write_text("".join(f">{n}\n{s}\n" for n, s in FAMILY[:3]))
+    out_dir = tmp_path / "prof"
+    assert cli.main(["--device", "cpu", "--profile", str(out_dir), str(fa)]) == 0
+    capsys.readouterr()
+    recs = json.loads((out_dir / "spans.json").read_text())
+    assert json.loads((out_dir / "trace.json").read_text())["traceEvents"]
+    assert recs[0]["name"] == "family" and recs[0]["parent"] is None
+    assert {"fold", "align", "merge DD", "final decode", "dd.loop"} <= {r["name"] for r in recs}
+    assert all(r["family"] == 0 and r["t0"] <= r["t1"] for r in recs)
+    assert not spans.recording()
