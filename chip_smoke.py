@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`dafs_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py dd_step [kernels length fold]   # those phases alone
 
 1. Prints the card's `nvidia-smi` name and power limit; fails without CUDA.
 2. Builds the CUDA kernels from `dafs_tpu_torch/csrc/` (nvcc, sm_90a).
@@ -104,6 +105,19 @@
    kernels must have launched once each per ladder attempt of each bucket
    shard on the card (the calls of `mccaskill_cuda.mccaskill`, counted by
    `watch_fold`), and the plain McCaskill on no card tensor (`check_fold`).
+6b. DD step phase (after 6a): the DD loop's multiplier step kernels
+   (`csrc/dd_step.cu`: candidates, update, scalars) at the batches of
+   RF00005's merge layers and family-50's first and last (captured from
+   `align_and_fold` runs on the card): under each update rule, 40 loop
+   bodies through the kernels and through the plain step (`dd._step_plain`,
+   ATen on the card), every state array bit-equal after every body and the
+   kernels' score matrices the plain ones; each layer's `solve_by_dd_batch`
+   through both equal in (s, x, y, z, iterations, violations); then the
+   step's CUDA-event ms as the loop launches it, its device ms (queued behind
+   a spin of the card) and each kernel's, beside the plain step's ms, its
+   bound (the bytes a body must move at 3.35 TB/s), the floor (one empty
+   launch) and one launch a kernel a body.  The slice phase prints the step
+   kernels' launches beside K3's.
 7. Solvers phase (last): the host merge solvers, counts set to 0 before
    each run: (c) `--ipknot` and (d) `-m 0` on RF00005 with the options the
    CLI builds, each tree topology held to `dafs_tpu`'s CPU output
@@ -924,6 +938,7 @@ def kernels():
         "nw": nw_cuda.DECODE,
         **alifold_kernels(),
         **fold_kernels(),
+        **dd_step_kernels(),
     }
 
 
@@ -994,6 +1009,10 @@ def slice_phase(dev):
         for name, k in kernels().items():
             if k.launches <= before[name]:
                 raise AssertionError(f"{fa_name}: kernel {name} was not launched")
+        step = {name: k.launches - before[name] for name, k in dd_step_kernels().items()}
+        print(f"slice {fa_name}: DD step kernels {step}, K3 "
+              f"{kernels()['nussinov'].launches - before['nussinov']} (a body each, and the "
+              f"final decode)")
         check_rows(res, fa)
         snap, snap_ss, snap_names, snap_rows = read_snapshot(snap_name)
         if NUM.sub("#", res.tree) != NUM.sub("#", snap):
@@ -1466,14 +1485,15 @@ def check_fold(label, counts):
 
 
 def ptxas_start():
-    """Starts nvcc -Xptxas -v on the fold's and the consensus's sources (the
-    library's flags), in the background; `ptxas_report` reads it."""
+    """Starts nvcc -Xptxas -v on the fold's, the consensus's and the DD
+    step's sources (the library's flags), in the background; `ptxas_report`
+    reads it."""
     from dafs_tpu_torch.ops import cuda_lib
 
     out = os.path.join(cuda_lib.BUILD_DIR, "ptxas")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    for src in ("mccaskill.cu", "alifold.cu"):
+    for src in ("mccaskill.cu", "alifold.cu", "dd_step.cu"):
         procs[src] = subprocess.Popen(
             [cuda_lib._nvcc(), *cuda_lib._COMPILE_FLAGS, "-Xptxas", "-v", "-I", cuda_lib.CSRC_DIR,
              "-c", "-o", os.path.join(out, src + ".o"), os.path.join(cuda_lib.CSRC_DIR, src)],
@@ -1859,6 +1879,290 @@ def fold_phase(dev):
 
 
 # ------------------------------------------------------------------ paths --
+
+# ---------------------------------------------------------------- dd step --
+# The DD loop's multiplier step (`csrc/dd_step.cu`): three kernels and one
+# `torch.sum` a body in place of the plain step's ~270 ATen launches, held
+# bit for bit to the plain step (`dd._step_plain`, ATen on the card).
+
+DD_STEP = {"dd_candidates": "candidates_kernel", "dd_update": "update_kernel",
+           "dd_scalars": "scalars_kernel"}
+DD_RULES = ("subgradient", "adagrad", "adam")
+
+
+def dd_step_kernels():
+    from dafs_tpu_torch.ops import dd_step_cuda
+
+    return {"dd_candidates": dd_step_cuda.CANDIDATES, "dd_update": dd_step_cuda.UPDATE,
+            "dd_scalars": dd_step_cuda.SCALARS}
+
+
+class plain_dd_step:
+    """Inside the block, DD loops on the card take the plain step
+    (`dd._step_plain` and the plain score matrices, ATen on the card) in
+    place of the step kernels."""
+
+    def __enter__(self):
+        from dafs_tpu_torch.ops import dd_step_cuda
+
+        self.orig = dd_step_cuda.Step
+        dd_step_cuda.Step = lambda pr, st: None
+        return self
+
+    def __exit__(self, *exc):
+        from dafs_tpu_torch.ops import dd_step_cuda
+
+        dd_step_cuda.Step = self.orig
+        return False
+
+
+def dd_layers(fa, dev, **kw):
+    """The batched DD of every guide-tree layer of one `align_and_fold` run
+    on `dev`: [(problems, solver keywords)], in the order solved."""
+    from dafs_tpu_torch import align_and_fold, dd
+
+    layers = []
+    orig = dd.solve_by_dd_batch
+
+    def solve(problems, **solve_kw):
+        layers.append((problems, {k: v for k, v in solve_kw.items() if k != "stats"}))
+        return orig(problems, **solve_kw)
+
+    dd.solve_by_dd_batch = solve
+    try:
+        align_and_fold(fa, device=dev, **kw)
+    finally:
+        dd.solve_by_dd_batch = orig
+    return layers
+
+
+def dd_state(problems, kw, rule, plain=False):
+    """(prep_batch's tensors, a `dd._State`) of one layer on kw["device"]
+    under `rule`, with the step kernels or (plain) the plain step."""
+    from dafs_tpu_torch import dd
+
+    pr = dd.prep_batch(problems, w=kw["w"], th_s=kw["th_s"], th_a=kw["th_a"],
+                       device=kw["device"])
+    f = np.float32
+    core = dict(th_s0=float(f(kw["th_s"][0])), th_a=float(f(kw["th_a"])),
+                eta0=float(f(kw["eta0"])), t_max=kw["t_max"], update_rule=rule)
+    if plain:
+        with plain_dd_step():
+            return pr, dd._State(pr, **core)
+    return pr, dd._State(pr, **core)
+
+
+def same_bits(u, v) -> bool:
+    """Whether two tensors hold the same bits (-0.0 is not 0.0)."""
+    import torch
+
+    if u.dtype == torch.float32:
+        u, v = u.view(torch.int32), v.view(torch.int32)
+    return torch.equal(u, v)
+
+
+def dd_states_equal(a, b) -> list:
+    """The names of the state arrays in which two `dd._State`s differ in
+    any bit (the optimiser planes as opt0, opt1, ...)."""
+    names = ("q_x", "q_y", "q_z", "eta", "c", "s_prev", "violated", "t", "x", "y", "z", "done")
+    pairs = [(n, getattr(a, n), getattr(b, n)) for n in names]
+    pairs += [(f"opt{k}", u, v) for k, (u, v) in enumerate(zip(a.opt, b.opt))]
+    return [n for n, u, v in pairs if not same_bits(u, v)]
+
+
+def compare_dd_bodies(problems, kw, rule, bodies):
+    """Runs `bodies` loop bodies of one layer on the card through the step
+    kernels and through the plain step; raises unless after every body the
+    two states are bit-equal (q, the optimiser state, eta, c, s_prev, t,
+    violated, x, y, z, done) and the kernels' score matrices for the next
+    body are the plain version's.  Returns the merges done at the end."""
+    from dafs_tpu_torch import dd
+
+    _, k = dd_state(problems, kw, rule)
+    _, p = dd_state(problems, kw, rule, plain=True)
+    if k.kernels is None or p.kernels is not None:
+        raise AssertionError("dd_state did not give the two routes")
+    for body in range(bodies):
+        dd._body(k)
+        dd._body(p)
+        bad = dd_states_equal(k, p)
+        sm_xy, sm_z = dd._scores_plain(p)
+        bad += [n for n, u, v in (("sm_xy", k.sm_xy, sm_xy), ("sm_z", k.sm_z, sm_z))
+                if not same_bits(u, v)]
+        if bad:
+            raise AssertionError(f"DD step, {rule}, B {k.B} P1 {k.P1} P2 {k.P2}: body {body} "
+                                 f"differs from the plain step in {bad}")
+    return int(k.done.sum())
+
+
+def solve_both_routes(problems, kw, rule):
+    """One layer's `solve_by_dd_batch` on the card through the step kernels
+    and through the plain step: (solutions, stats) of each."""
+    from dafs_tpu_torch import dd
+
+    out = []
+    for plain in (False, True):
+        stats = []
+        kw2 = {**kw, "update_rule": rule, "stats": stats}
+        if plain:
+            with plain_dd_step():
+                sols = dd.solve_by_dd_batch(problems, **kw2)
+        else:
+            sols = dd.solve_by_dd_batch(problems, **kw2)
+        out.append((sols, stats))
+    return out
+
+
+def dd_solutions_equal(a, b) -> bool:
+    (sa, ta), (sb, tb) = a, b
+    return ta == tb and all(
+        np.float32(u[0]).tobytes() == np.float32(v[0]).tobytes()
+        and all(np.array_equal(x, y) for x, y in zip(u[1:], v[1:])) for u, v in zip(sa, sb))
+
+
+def dd_step_bytes(pr, rule):
+    """The bytes one body's step must move at this batch (every merge
+    running): each multiplier cell's p, candidate mask and q read and q and
+    score written, the optimiser planes read and written, the candidates
+    (four int64 and the valid byte) read, the decodes read, x, y, z and the
+    per-merge values written."""
+    B, P1, P2 = pr["p_z"].shape
+    U = pr["cbp"].shape[1]
+    P = max(P1, P2)
+    planes = {"subgradient": 0, "adagrad": 1, "adam": 2}[rule]
+    cells = B * (P1 * P1 + P2 * P2 + P1 * P2)
+    return (cells * (4 + 1 + 4 + 4 + 4 + 8 * planes) + B * U * 33
+            + 4 * (2 * B * P + B * P1 + 3 * B) + 4 * B * (2 * P1 + P2) + 40 * B)
+
+
+def queued_ms(fn, reps):
+    """Mean device milliseconds of `fn` over `reps` calls queued behind a
+    spin of the card (`torch.cuda._sleep`), so no host launch gap falls
+    between them; (ms, host ms to queue them, spin ms)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    spin = torch.cuda.Event(enable_timing=True)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    spin.record()
+    torch.cuda._sleep(40_000_000)
+    t0.record()
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - h0)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps, host_ms, spin.elapsed_time(t0)
+
+
+def dd_step_rows(label, problems, kw, dev, reps=50):
+    """The step kernels at one layer's batch, every merge running: each
+    kernel's device ms, the whole step's ms as the loop launches it and its
+    device ms, the plain step's ms, the bound, the floor (one empty launch)
+    and the launches a body; returns {kernel: row}."""
+    import ctypes
+
+    import torch
+
+    from dafs_tpu_torch import dd
+    from dafs_tpu_torch.ops import alifold_cuda, cuda_lib, dd_step_cuda, nussinov, nw
+
+    rule = kw.get("update_rule", "subgradient")
+    pr, st = dd_state(problems, kw, rule)
+    _, pl = dd_state(problems, kw, rule, plain=True)
+    s_xy, xy = nussinov.decode(st.sm_xy, st.lens_xy)
+    s_z, z_new = nw.decode(st.sm_z, pr["env_first"], pr["env_last"], pr["l1"], pr["l2"])
+    done0 = st.done.clone()
+    saved = dict(vars(pl))
+
+    def step():
+        st.done.copy_(done0)
+        st.kernels(s_xy, xy, s_z, z_new)
+
+    def plain():
+        vars(pl).update(saved)
+        dd._step_plain(pl, s_xy, xy, s_z, z_new)
+
+    before = {n: k.launches for n, k in dd_step_kernels().items()}
+    step()
+    per_body = {n: k.launches - before[n] for n, k in dd_step_kernels().items()}
+    ms = cuda_ms(step, reps)
+    dev_ms, host_ms, spin_ms = queued_ms(step, reps)
+    plain_ms = cuda_ms(plain, max(reps // 10, 3))
+    floor_ms = cuda_ms(lambda: alifold_cuda.floor_probe(dev, 1), reps)
+    a, p = ctypes.byref(st.kernels.args), cuda_lib.ptr
+    s_sum = torch.sum(st.kernels.scratch["sw"], dim=1)
+
+    def scalars():
+        st.done.copy_(done0)
+        dd_step_cuda.SCALARS(a, p(s_xy), p(xy), p(s_z), p(s_sum), p(z_new))
+
+    parts = {
+        "dd_candidates": lambda: dd_step_cuda.CANDIDATES(a),
+        "dd_update": lambda: dd_step_cuda.UPDATE(a, p(xy), p(z_new)),
+        "dd_scalars": scalars,
+    }
+    nbytes = dd_step_bytes(pr, rule)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    B, P1, P2 = pr["p_z"].shape
+    shape = f"B {B}, P1 {P1}, P2 {P2}, U {pr['cbp'].shape[1]}"
+    print(f"dd step {label} ({shape}, {rule}): {ms:.4f} ms a body as the loop launches it "
+          f"({sum(per_body.values())} launches + one torch.sum, and a copy of done that keeps "
+          f"every merge running), {dev_ms:.4f} ms on the device "
+          f"(queued behind a {spin_ms:.1f} ms spin in {host_ms:.1f} ms of host); plain step "
+          f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({nbytes} bytes); floor {floor_ms:.4f} ms "
+          f"(one empty launch)", flush=True)
+    if set(per_body.values()) != {1}:
+        raise AssertionError(f"dd step {label}: launches a body {per_body}")
+    rows = {}
+    for name, fn in parts.items():
+        part_ms = queued_ms(fn, reps)[0]
+        rows[name] = dict(name=name, route="cuda", source="dafs_tpu_torch/csrc/dd_step.cu",
+                          replaces="none (XLA fused dafs_tpu/dd.py::_dd_core's body)",
+                          shape=shape, rule=rule, ms=part_ms, step_ms=ms,
+                          step_device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by="bytes", floor_ms=floor_ms, launches_per_body=1,
+                          max_abs_err=0.0, library_ms=None, launched_by="dd._step")
+        print(f"  kernel {name}: {part_ms:.4f} ms on the device"
+              + (" (with the 1-byte-a-merge copy of done that keeps every merge running)"
+                 if name == "dd_scalars" else ""), flush=True)
+    return rows
+
+
+def dd_step_phase(dev):
+    """The step kernels at RF00005's merge layers and family-50's first and
+    last: bit-equal to the plain step body by body under each rule, whole
+    solves equal under subgradient, and timed; returns {kernel: row} (the
+    last shape's, every shape's under "by_case")."""
+    t0 = time.perf_counter()
+    cases = [(f"RF00005 layer {i}", lay) for i, lay in
+             enumerate(dd_layers(read_fasta("RF00005_0.fa"), dev))]
+    fam = dd_layers(family50(), dev)
+    cases += [("family-50 first layer", fam[0]), ("family-50 last layer", fam[-1])]
+    print(f"dd step: captured {len(cases)} layers in {time.perf_counter() - t0:.1f}s", flush=True)
+    rows, by_case = {}, {}
+    for label, (problems, kw) in cases:
+        for rule in DD_RULES:
+            done = compare_dd_bodies(problems, kw, rule, 40)
+            print(f"dd step {label}, {rule}: 40 bodies bit-equal to the plain step "
+                  f"({done} of {len(problems)} merges done)", flush=True)
+        got, want = solve_both_routes(problems, kw, "subgradient")
+        if not dd_solutions_equal(got, want):
+            raise AssertionError(f"dd step {label}: solve_by_dd_batch differs from the plain step")
+        print(f"dd step {label}: solve_by_dd_batch equals the plain step's; iterations "
+              f"{[t for t, _ in got[1]]}", flush=True)
+        rows = dd_step_rows(label, problems, kw, dev)
+        for name, row in rows.items():
+            by_case.setdefault(name, {})[label] = {
+                k: row[k] for k in ("shape", "ms", "step_ms", "step_device_ms",
+                                    "plain_ms", "bound_ms", "floor_ms")}
+    for name, row in rows.items():
+        row["by_case"] = by_case[name]
+    return rows
+
 
 CONTRA = dict(align_model="CONTRAlign", fold_model="CONTRAfold")
 BP_UPDATE = dict(use_bp_update=True, use_bp_update1=True)
@@ -2577,9 +2881,18 @@ def main() -> int:
         print(f"phase {phase}: {seconds[phase]}s", flush=True)
         return out
 
+    alone = {"kernels": kernel_phase, "length": length_phase, "fold": fold_phase,
+             "dd_step": dd_step_phase}
+    if sys.argv[1:]:
+        for phase in sys.argv[1:]:
+            rows.update(run(phase, alone[phase]))
+        print(json.dumps({"kernels": list(rows.values())}))
+        print(json.dumps({"ok": True, "phases": sys.argv[1:]}))
+        return 0
     rows.update(run("kernels", kernel_phase))
     rows.update(run("length", length_phase))
     rows.update(run("fold", fold_phase))
+    rows.update(run("dd_step", dd_step_phase))
     counts = run("slice", slice_phase)
     ali_rows, by_path = run("consensus", consensus_phase)
     rows.update(ali_rows)

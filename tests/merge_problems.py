@@ -38,3 +38,16 @@ def _problem(seed, L1, L2):
 # (seed, L1, L2, n1, n2): true lengths around the 32-padding, 1, and ragged pairs
 PROBLEMS = [(0, 1, 1, 1, 1), (1, 1, 9, 1, 2), (2, 31, 33, 1, 1), (3, 32, 32, 2, 1),
             (4, 33, 31, 1, 3), (5, 20, 45, 2, 2), (6, 40, 17, 3, 1)]
+
+
+def _dense_problem(seed, L1, L2):
+    """A merge with many consensus candidates (hundreds at L of 50-90):
+    twenty stems a side and match probabilities on a band of width 9."""
+    rng = np.random.default_rng(seed)
+    p_x, p_y = _helix_probs(rng, L1, 20), _helix_probs(rng, L2, 20)
+    near = np.abs(np.arange(L1)[:, None] * L2 / L1 - np.arange(L2)[None, :]) <= 4
+    return p_x, p_y, np.float32(near * (0.2 + 0.6 * rng.random((L1, L2))))
+
+
+# (seed, L1, L2, n1, n2) of `_dense_problem`: P1 96 and P2 64, U 1280
+DENSE = [(1, 70, 60, 2, 2), (2, 90, 40, 3, 1)]

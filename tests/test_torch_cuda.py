@@ -18,8 +18,8 @@ import torch
 
 import chip_smoke
 from dafs_tpu_torch.ops import (
-    alifold, alifold_cuda, contrafold, cuda_lib, mccaskill, mccaskill_cuda, nussinov,
-    nussinov_cuda, nw, nw_cuda, paircrf, pairhmm, pairhmm_cuda,
+    alifold, alifold_cuda, contrafold, cuda_lib, dd_step_cuda, mccaskill, mccaskill_cuda,
+    nussinov, nussinov_cuda, nw, nw_cuda, paircrf, pairhmm, pairhmm_cuda,
 )
 from dafs_tpu_torch.ops import alifold_kernel as ak
 
@@ -52,6 +52,7 @@ def _decoder_args(dev, rng, L=64):
     (nussinov_cuda, "DECODE"), (nw_cuda, "DECODE"),
     (alifold_cuda, "INSIDE"), (alifold_cuda, "EXTERIOR"), (alifold_cuda, "OUTSIDE"),
     (mccaskill_cuda, "INSIDE"), (mccaskill_cuda, "EXTERIOR"), (mccaskill_cuda, "OUTSIDE"),
+    (dd_step_cuda, "CANDIDATES"), (dd_step_cuda, "UPDATE"), (dd_step_cuda, "SCALARS"),
 ])
 def test_broken_library_raises(module, attr, dev, monkeypatch):
     """A CUDA tensor goes to the kernel or raises: a wrapper whose library
@@ -73,6 +74,12 @@ def test_broken_library_raises(module, attr, dev, monkeypatch):
             nw.decode(*nw_args)
         elif module is mccaskill_cuda:
             mccaskill.batch_bp_posteriors_fast(["GGGGAAAACCCC", "GCGCUUCGGCGCAA"], 0.0, dev)
+        elif module is dd_step_cuda:
+            from dafs_tpu_torch import dd
+            from tests.merge_problems import KW, PROBLEMS, _problem
+
+            probs = [(*_problem(*p[:3]), *p[3:]) for p in PROBLEMS[2:4]]
+            dd.solve_by_dd_batch(probs, device=dev, t_max=20, **KW)
         else:
             alifold.Alifold(0.0).consensus(["GGGC-AAAGCCC", "GG-CAAA-GCCC"], dev)
     assert broken.launches == 0
@@ -515,6 +522,111 @@ def test_dd_update_rules_match_cpu(rule, dev):
         assert abs(g[0] - w[0]) <= 4 * 2.0 ** -23 * abs(w[0])
         for u, v in zip(g[1:], w[1:]):
             np.testing.assert_array_equal(u, v)
+
+
+def _dd_batch(batch):
+    from tests.merge_problems import DENSE, PROBLEMS, _dense_problem, _problem
+
+    if batch == "problems":  # merges converging after 1 to 116 bodies, one capped
+        return [(*_problem(*p[:3]), *p[3:]) for p in PROBLEMS], 120
+    if batch == "dense":  # P1 96, P2 64, U 1280
+        return [(*_dense_problem(*p[:3]), *p[3:]) for p in DENSE], 40
+    # padded 1056 and 64: K3's long variant (past MAX_L)
+    return [(*_problem(11, 1040, 60), 2, 1), (*_problem(12, 700, 50), 1, 1)], 4
+
+
+@pytest.mark.parametrize("rule", ["subgradient", "adagrad", "adam"])
+@pytest.mark.parametrize("batch", ["problems", "dense", "long"])
+def test_dd_step_kernels_match_plain_step(batch, rule, dev):
+    """The DD step kernels against the plain step on the card, body by
+    body: q, the optimiser state, eta, c, s, t, violated, x, y, z and done
+    bit-equal after every body, and the kernels' score matrices for the
+    next body the plain ones; with merges freezing on the way, P1 != P2, U
+    above 256, and a padded length above K3's MAX_L."""
+    from tests.merge_problems import KW
+
+    probs, bodies = _dd_batch(batch)
+    if batch == "long":
+        assert -(-max(p[2].shape[0] for p in probs) // 32) * 32 > nussinov_cuda.MAX_L
+    done = chip_smoke.compare_dd_bodies(probs, dict(KW, device=dev, t_max=600), rule, bodies)
+    if batch == "problems" and rule == "subgradient":
+        assert 0 < done < len(probs)
+
+
+@pytest.fixture(scope="module")
+def card_dd_layers():
+    """Every batched DD layer of RF00005's and family-50's default runs on
+    the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    return {"RF00005": chip_smoke.dd_layers(chip_smoke.read_fasta("RF00005_0.fa"), dev),
+            "family-50": chip_smoke.dd_layers(chip_smoke.family50(), dev)}
+
+
+@pytest.mark.parametrize("rule", ["subgradient", "adagrad", "adam"])
+@pytest.mark.parametrize("family", ["RF00005", "family-50"])
+def test_dd_kernel_route_matches_plain_route(family, rule, card_dd_layers):
+    """`solve_by_dd_batch` through the step kernels equals it through the
+    plain step on the card, bit for bit in (s, x, y, z) and the iterations
+    and violations of every merge, on every layer of the family."""
+    layers = card_dd_layers[family]
+    assert len(layers) >= (3 if family == "RF00005" else 6)
+    for problems, kw in layers:
+        got, want = chip_smoke.solve_both_routes(problems, kw, rule)
+        assert chip_smoke.dd_solutions_equal(got, want), (family, rule, len(problems))
+
+
+def test_dd_step_counts_its_bodies(dev):
+    """On the card every DD loop body goes through the step kernels: the
+    counter step_kernel_bodies equals iterations; through the plain step it
+    is 0."""
+    from dafs_tpu_torch import dd
+    from dafs_tpu_torch.utils import spans
+    from tests.merge_problems import KW, PROBLEMS, _problem
+
+    probs = [(*_problem(*p[:3]), *p[3:]) for p in PROBLEMS]
+    for plain in (False, True):
+        with spans.record() as recs:
+            if plain:
+                with chip_smoke.plain_dd_step():
+                    dd.solve_by_dd_batch(probs, device=dev, t_max=150, **KW)
+            else:
+                dd.solve_by_dd_batch(probs, device=dev, t_max=150, **KW)
+        (loop,) = [sp for sp in recs if sp.name == "dd.loop"]
+        assert loop.counts["iterations"] > 0
+        assert loop.counts["step_kernel_bodies"] == (0 if plain else loop.counts["iterations"])
+
+
+def test_dd_step_wrapper_rejects_bad_inputs(dev):
+    """The step kernels' wrapper raises on a wrong dtype, shape or device,
+    of a decode's output or of the state, and launches nothing."""
+    from tests.merge_problems import KW, PROBLEMS, _problem
+
+    probs = [(*_problem(*p[:3]), *p[3:]) for p in PROBLEMS[:3]]
+    pr, st = chip_smoke.dd_state(probs, dict(KW, device=dev, t_max=50), "adam")
+    B, P, P1 = st.B, max(st.P1, st.P2), st.P1
+    s_xy = torch.zeros(2 * B, device=dev)
+    xy = torch.zeros((2 * B, P), dtype=torch.int32, device=dev)
+    s_z = torch.zeros(B, device=dev)
+    z_new = torch.zeros((B, P1), dtype=torch.int32, device=dev)
+    before = [k.launches for k in chip_smoke.dd_step_kernels().values()]
+    for bad in ((s_xy.double(), xy, s_z, z_new), (s_xy, xy[:, 1:].contiguous(), s_z, z_new),
+                (s_xy, xy, s_z.cpu(), z_new), (s_xy, xy, s_z, z_new.long()),
+                (s_xy, torch.zeros((P, 2 * B), dtype=torch.int32, device=dev).t(), s_z, z_new)):
+        with pytest.raises(ValueError):
+            st.kernels(*bad)
+    with pytest.raises(ValueError):
+        dd_step_cuda.Step(dict(pr, p_x=pr["p_x"].double()), st)
+    with pytest.raises(ValueError):
+        dd_step_cuda.Step(dict(pr, cbp=pr["cbp"].int()), st)
+    st.opt = st.opt[:3]
+    with pytest.raises(ValueError):
+        dd_step_cuda.Step(pr, st)
+    st.q_x = st.q_x.cpu()
+    with pytest.raises(ValueError):
+        dd_step_cuda.Step(pr, st)
+    assert before == [k.launches for k in chip_smoke.dd_step_kernels().values()]
 
 
 def test_fourway_matches_cpu(dev):

@@ -11,6 +11,7 @@ import torch
 
 from dafs_tpu import dd as j_dd
 from dafs_tpu_torch import dd as t_dd
+from dafs_tpu_torch.utils import spans
 
 # pytest-xdist runs several test processes side by side; torch's own
 # intra-op threads in each of them would oversubscribe the cores
@@ -71,6 +72,18 @@ def test_batch_matches_jax(seed):
     assert bool((violated == 0).all()) and bool((t < KW["t_max"]).all())
     _check(t_dd.solve_by_dd_batch(probs, device="cpu", **KW),
            j_dd.solve_by_dd_batch(probs, **KW))
+
+
+def test_cpu_route_runs_no_step_kernels():
+    """On the CPU the DD loop takes the plain step: its `dd.loop` span
+    counts its bodies and no step-kernel body, and the result is
+    `dafs_tpu`'s."""
+    probs = _problems(16)
+    with spans.record() as recs:
+        got = t_dd.solve_by_dd_batch(probs, device="cpu", **KW)
+    (loop,) = [sp for sp in recs if sp.name == "dd.loop"]
+    assert loop.counts["iterations"] > 0 and loop.counts["step_kernel_bodies"] == 0
+    _check(got, j_dd.solve_by_dd_batch(probs, **KW))
 
 
 def test_single_merge_matches_jax():

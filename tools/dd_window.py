@@ -1,0 +1,63 @@
+"""One cell through `portbench/span_run.py`, with the DD loop's counters.
+
+    python3 tools/dd_window.py --workload NAME --seed N --seconds S --trace 0|1
+
+Runs `span_run.main` with the same arguments (its line on standard output,
+its extra lines on standard error) and adds one line to standard error:
+`dd_counters: {...}`, the counters "iterations" and "step_kernel_bodies"
+summed over the `dd.loop` spans of the measured window (and of the whole
+run), with the loops that ran any body through the plain step.  On the card
+every body goes through the step kernels (`ops/dd_step_cuda`), so the two
+sums are equal.
+"""
+
+from __future__ import annotations
+
+import time
+
+T_PROCESS = time.perf_counter()
+
+import json  # noqa: E402
+import os  # noqa: E402
+import sys  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def sums(loops) -> dict:
+    it = sum(sp.counts.get("iterations", 0) for sp in loops)
+    kb = sum(sp.counts.get("step_kernel_bodies", 0) for sp in loops)
+    plain = sum(sp.counts.get("step_kernel_bodies", 0) < sp.counts.get("iterations", 0)
+                for sp in loops)
+    return dict(loops=len(loops), iterations=it, step_kernel_bodies=kb, loops_not_all_kernels=plain)
+
+
+def main(argv=None) -> int:
+    from portbench import span_run, spans
+
+    runs = []
+    window_spans = spans.window_spans
+
+    def keep(run):
+        runs.append(run)
+        return window_spans(run)
+
+    spans.window_spans = keep
+    span_run.T_PROCESS = T_PROCESS
+    try:
+        rc = span_run.main(argv)
+    finally:
+        spans.window_spans = window_spans
+    if runs:
+        run = runs[-1]
+        window = [sp for sp in window_spans(run) if sp.name == "dd.loop"]
+        every = [sp for sp in run.spans if sp.name == "dd.loop"]
+        print("dd_counters: " + json.dumps(dict(window=sums(window), run=sums(every))),
+              file=sys.stderr)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
