@@ -35,9 +35,10 @@ def readings(cell, seeds, control_seeds, device, out=sys.stdout):
 
     config = cell.config
     spec = cell.checks
-    ref = Reference(config["options"], config["fold_model"], config["align_model"], device)
+    ref = Reference(config["options"], config["fold_model"], config["align_model"], device,
+                    root=cell.root)
     ctrl = Reference(config["options"], config["fold_model"], config["align_model"], device,
-                     tf32=True)
+                     tf32=True, root=cell.root)
     rows = []
     for seed in sorted(set(seeds) | set(control_seeds)):
         fams = traffic.Families(cell.mix, seed, cell.root)

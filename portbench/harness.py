@@ -3,9 +3,11 @@
 Everything a cell needs is found by name from `BENCHMARK.json`: its
 configuration (`configs/<config>.json`), its traffic mix
 (`traffic/<traffic>.json`, read by `traffic.py`), its check
-(`checks/<workload>.json`: sample sizes and the limits) and one reader per
-metric (`metrics/<metric>.py`, a function `read(run)` that returns a
-number or None).
+(`checks/<workload>.json`: sample sizes and the limits), the check's
+reference of the configuration's fold and align models
+(`reference/fold/<fold_model>.py`, `reference/align/<align_model>.py`) and
+one reader per metric (`metrics/<metric>.py`, a function `read(run)` that
+returns a number or None).
 
 A run is a closed loop at concurrency 1.  Set-up imports the port, makes a
 CUDA context, builds or loads the kernel library and runs one warm family
@@ -104,6 +106,7 @@ class Cell:
 
     def __init__(self, bench: dict, name: str, root: str = HERE):
         from portbench import traffic
+        from portbench.reference import family
 
         cells = {w["name"]: w for w in bench["workloads"]}
         if name not in cells:
@@ -113,6 +116,13 @@ class Cell:
         conf = {c["name"]: c for c in bench["configs"]}[self.spec["config"]]
         self.config = load_json(ROOT, conf["file"]) if not os.path.isabs(conf["file"]) \
             else load_json(conf["file"])
+        # the check's reference of each model, before any set-up is paid for
+        for kind in ("fold", "align"):
+            path = family.model_file(kind, self.config[f"{kind}_model"], root)
+            if not os.path.isfile(path):
+                raise SystemExit(f"configuration {conf['name']!r} names the {kind} model "
+                                 f"{self.config[f'{kind}_model']!r}, which has no reference: "
+                                 f"{path} is missing")
         self.mix = traffic.load_mix(self.spec["traffic"], root)
         self.checks = load_json(root, "checks", f"{name}.json")
         self.metrics = {}
@@ -370,7 +380,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    ref = Reference(config["options"], config["fold_model"], config["align_model"], device)
+    ref = Reference(config["options"], config["fold_model"], config["align_model"], device,
+                    root=cell.root)
     rng = np.random.default_rng([int(seed) % 2**64, 3])
     numbers: dict = {}
     t_check = time.perf_counter()

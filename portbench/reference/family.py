@@ -8,20 +8,49 @@ posteriors after PCT and the similarity matrix; `merge_inputs` the averaged
 input; `replay_dd` the device DD loop on a layer of merges; `decode` the
 final structure of an input.  Every
 function reads only its arguments and the parameter files.
+
+The fold and align models are found by name, one file each under the
+benchmark folder's `reference/`, so that a configuration of other models
+comes as added files:
+
+- `fold/<fold_model>.py`: `posteriors(seqs, device)`, each sequence's
+  unthresholded (len, len) float32 posteriors, and `CONSENSUS_LEAVES`,
+  whether a group of one sequence takes its consensus from them (where
+  `Dafs.run` hands them over: McCaskill under the consensus's own
+  parameters);
+- `align/<align_model>.py`: `posteriors(seqs1, seqs2, th_a, device)`, each
+  pair's match posteriors, entries kept above `th_a`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
+import os
 
 import numpy as np
 import torch
 
-from portbench.reference import (
-    alifold, consistency, dd, guide_tree, mccaskill, nussinov, pairhmm, projection,
-)
+from portbench.reference import alifold, consistency, dd, guide_tree, nussinov, projection
 from portbench.reference.typedefs import CUTOFF, AlnRow
+
+
+PORTBENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def model_file(kind: str, name: str, root: str = PORTBENCH) -> str:
+    """The reference file of the `kind` ("fold" or "align") model `name`
+    in the benchmark folder `root` (a test's may be elsewhere)."""
+    return os.path.join(root, "reference", kind, f"{name}.py")
+
+
+def load_model(kind: str, name: str, root: str = PORTBENCH):
+    path = model_file(kind, name, root)
+    spec = importlib.util.spec_from_file_location(f"portbench_reference_{kind}_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @dataclasses.dataclass
@@ -32,14 +61,14 @@ class Record:
 
 class Reference:
     def __init__(self, options: dict, fold_model: str, align_model: str, device,
-                 tf32: bool = False):
+                 tf32: bool = False, root: str = PORTBENCH):
         self.o = dict(options)
         # float32 matrix products in full precision; TF32 only for the
         # control (`check.control_numbers`)
         self.tf32 = tf32
         self.o.setdefault("th_s1", self.o["th_s"])
-        self.fold_model = fold_model
-        self.align_model = align_model
+        self.fold = load_model("fold", fold_model, root)
+        self.align = load_model("align", align_model, root)
         self.device = torch.device(device)
         # the consensus takes the BL* parameters exactly under "Boltzmann"
         self.alifold = alifold.Alifold(0.0, bl=fold_model == "Boltzmann")
@@ -47,14 +76,11 @@ class Reference:
     # -- fold, align, similarity, PCT -------------------------------------
 
     def _fold(self, seqs):
-        """(N, L, L) posteriors above CUTOFF; the McCaskill run's own
-        unthresholded posteriors serve the consensus of one sequence."""
-        if self.fold_model in ("Boltzmann", "Vienna"):
-            posts = mccaskill.batch_bp_posteriors_fast(
-                seqs, 0.0, self.device, bl=self.fold_model == "Boltzmann")
-            self.alifold.leaves = dict(zip(seqs, posts))
-        else:
-            raise ValueError(f"unknown fold model {self.fold_model!r}")
+        """(N, L, L) posteriors above CUTOFF; the fold's own unthresholded
+        posteriors serve the consensus of one sequence where the model says
+        so."""
+        posts = self.fold.posteriors(seqs, self.device)
+        self.alifold.leaves = dict(zip(seqs, posts)) if self.fold.CONSENSUS_LEAVES else {}
         L = max(len(s) for s in seqs)
         bp = np.zeros((len(seqs), L, L), np.float32)
         for i, p in enumerate(posts):
@@ -66,10 +92,8 @@ class Reference:
         identity on the diagonal."""
         N, L = len(seqs), max(len(s) for s in seqs)
         pairs = [(i, j) for i in range(N) for j in range(i + 1, N)]
-        if self.align_model != "ProbCons":
-            raise ValueError(f"unknown align model {self.align_model!r}")
-        posts = pairhmm.batch_posteriors([seqs[i] for i, _ in pairs], [seqs[j] for _, j in pairs],
-                   self.o["th_a"], self.device)
+        posts = self.align.posteriors([seqs[i] for i, _ in pairs], [seqs[j] for _, j in pairs],
+                                      self.o["th_a"], self.device)
         mp = np.zeros((N, N, L, L), np.float32)
         for (i, j), p in zip(pairs, posts):
             mp[i, j, : p.shape[0], : p.shape[1]] = p

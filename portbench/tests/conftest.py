@@ -1,8 +1,9 @@
 """Shared fixtures of the benchmark's tests: a tiny cell on the CPU.
 
 The cell runs the real configurations on four 24-25 nt sequences, with the
-limits of `checks/default-trna.json`, through the harness with its look for
-a card skipped (`harness.run_cell(..., device="cpu")`)."""
+limits of `checks/default-trna.json` and copies of the benchmark's model
+references (`reference/fold`, `reference/align`), through the harness with
+its look for a card skipped (`harness.run_cell(..., device="cpu")`)."""
 
 from __future__ import annotations
 
@@ -45,13 +46,17 @@ def load_bench():
 
 @pytest.fixture
 def tiny_cell(tmp_path):
-    """make(config) -> a `harness.Cell` named "tiny" of that configuration."""
+    """make(config, file=None) -> a `harness.Cell` named "tiny" of that
+    configuration (of `file`, where it is not one of the benchmark's)."""
     from portbench import harness
 
     root = tmp_path / "bench"
     for d in ("traffic", "data", "checks"):
         (root / d).mkdir(parents=True)
     shutil.copytree(os.path.join(ROOT, "portbench", "metrics"), root / "metrics")
+    for kind in ("fold", "align"):
+        shutil.copytree(os.path.join(ROOT, "portbench", "reference", kind),
+                        root / "reference" / kind, ignore=shutil.ignore_patterns("__pycache__"))
     (root / "data" / "tiny.fa").write_text(TINY_FA)
     (root / "traffic" / "tiny.json").write_text(json.dumps(dict(
         fasta="tiny.fa", sizes=[4], pool=dict(seed=3, blocks=2),
@@ -59,10 +64,11 @@ def tiny_cell(tmp_path):
     shutil.copy(os.path.join(ROOT, "portbench", "checks", "default-trna.json"),
                 root / "checks" / "tiny.json")
 
-    def make(config="dafs-default"):
+    def make(config="dafs-default", file=None):
         bench = load_bench()
         if config not in {c["name"] for c in bench["configs"]}:
-            bench["configs"].append(dict(name=config, file=f"portbench/configs/{config}.json"))
+            bench["configs"].append(dict(name=config,
+                                         file=file or f"portbench/configs/{config}.json"))
         bench["workloads"].append(dict(name="tiny", config=config, traffic="tiny", chips=1,
                                        why="a test"))
         for m in bench["end_to_end"] + bench["per_layer"]:

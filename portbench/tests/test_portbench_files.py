@@ -54,8 +54,13 @@ def test_config_resolves(c):
     with open(os.path.join(ROOT, c["file"])) as fh:
         conf = json.load(fh)
     assert conf["name"] == c["name"]
-    assert conf["fold_model"] in ("Boltzmann", "Vienna", "CONTRAfold")
-    assert conf["align_model"] in ("ProbCons", "CONTRAlign")
+    # each model has the check's reference, and the port runs it
+    from dafs_tpu_torch.models import align_models, fold_models
+    from portbench.reference import family
+
+    for kind, by_name in (("fold", fold_models.by_name), ("align", align_models.by_name)):
+        assert os.path.isfile(family.model_file(kind, conf[f"{kind}_model"]))
+        by_name(conf[f"{kind}_model"], 0.01)
     assert any(w["config"] == c["name"] for w in BENCH["workloads"])
 
 

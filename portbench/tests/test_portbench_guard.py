@@ -1,8 +1,8 @@
 """Nothing that a run of the benchmark runs imports JAX or the JAX package:
 in a subprocess, a meta-path finder refuses every module whose top-level
 name is exactly `jax` or `dafs_tpu` (so `dafs_tpu_torch` passes); under it
-the entry, every metric reader, the reference and the control are
-imported, and a tiny cell runs on the CPU."""
+the entry, every metric reader, the reference with every model file and
+the control are imported, and a tiny cell runs on the CPU."""
 
 from __future__ import annotations
 
@@ -24,10 +24,14 @@ PROGRAM = textwrap.dedent("""
     sys.meta_path.insert(0, Refuse())
     sys.path.insert(0, {root!r})
     import portbench.run, portbench.control, portbench.check, portbench.trace
-    import portbench.reference.family
+    from portbench.reference import family
     for name in os.listdir(os.path.join({root!r}, "portbench", "reference")):
         if name.endswith(".py") and name != "__init__.py":
             importlib.import_module("portbench.reference." + name[:-3])
+    for kind in ("fold", "align"):
+        for name in os.listdir(os.path.join({root!r}, "portbench", "reference", kind)):
+            if name.endswith(".py"):
+                family.load_model(kind, name[:-3])
     from portbench import harness
     bench = harness.load_json({root!r}, "BENCHMARK.json")
     for m in bench["end_to_end"] + bench["per_layer"]:

@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from conftest import TINY_FA
+from conftest import ROOT, TINY_FA, load_bench
 from portbench import check, harness
 from portbench.reference import family as F
 
@@ -25,9 +25,9 @@ def _port(config):
     return d, layers, final
 
 
-@pytest.mark.parametrize("name", ["dafs-default"])
-def test_reference_equals_the_plain_port(name):
-    config = harness.load_json(harness.ROOT, "portbench", "configs", f"{name}.json")
+@pytest.mark.parametrize("conf", load_bench()["configs"], ids=lambda c: c["name"])
+def test_reference_equals_the_plain_port(conf):
+    config = harness.load_json(ROOT, conf["file"])
     d, layers, (final_p, _) = _port(config)
     ref = F.Reference(config["options"], config["fold_model"], config["align_model"], "cpu")
     seqs = [s for _, s in RECORDS]

@@ -9,6 +9,7 @@ import time
 import numpy as np
 import pytest
 
+from conftest import load_bench
 from portbench import harness
 
 
@@ -17,7 +18,7 @@ def _run(cell, seed=2**31 + 11, seconds=0.1):
     return line, "\n".join(lines)
 
 
-@pytest.mark.parametrize("config", ["dafs-default"])
+@pytest.mark.parametrize("config", [c["name"] for c in load_bench()["configs"]])
 def test_sound_run_is_correct(tiny_cell, config):
     line, lines = _run(tiny_cell(config))
     assert line["correct"], lines
