@@ -3,7 +3,9 @@ the CPU: off it records nothing; on, its spans nest, carry their family's
 id, give exactly the seconds of `Result.phase_seconds` and
 `consensus_calls`, count the DD loop's bodies, and leave the results bit
 for bit as they are with recording off.  Each case runs under one DD
-update rule of the device loop, or the host loop (`dd_host`)."""
+update rule of the device loop, or the host loop (`dd_host`).  The CONTRA
+models' spans (`contrafold.batch`, `paircrf.batch`) on a family of
+`-s CONTRAfold -a CONTRAlign`: their nesting and counters."""
 
 import json
 
@@ -11,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from dafs_tpu_torch import cli, pipeline
+from dafs_tpu_torch import api, cli, pipeline
 from dafs_tpu_torch.fasta import Fasta
 from dafs_tpu_torch.models import align_models, fold_models
-from dafs_tpu_torch.ops import alifold
+from dafs_tpu_torch.ops import alifold, contrafold, paircrf
 from dafs_tpu_torch.typedefs import CUTOFF
 from dafs_tpu_torch.utils import spans
 
@@ -204,3 +206,117 @@ def test_profile_writes_spans(tmp_path, capsys):
     assert {"fold", "align", "merge DD", "final decode", "dd.loop"} <= {r["name"] for r in recs}
     assert all(r["family"] == 0 and r["t0"] <= r["t1"] for r in recs)
     assert not spans.recording()
+
+
+# -- the CONTRA models (`-s CONTRAfold -a CONTRAlign`) -------------------------
+
+# three short sequences in two of CONTRAfold's 32-length buckets
+CONTRA_FAMILY = [
+    ("a", "GGGCAACGACGUUCGUCGAAACCC"),
+    ("b", "GGGCAACGACGUUCGUCGAAACCCAGGGAAAUCCCUUU"),
+    ("c", "GGCAAACGACGUUCGUCGAAAGCC"),
+]
+_CONTRA_RUNS: dict = {}
+
+
+def _contra_run(record):
+    """(result, spans or None) of one `-s CONTRAfold -a CONTRAlign` run of
+    CONTRA_FAMILY, as `api.make_dafs` builds it, kept for the module."""
+    if record not in _CONTRA_RUNS:
+        d = api.make_dafs(pipeline.Options(), device="cpu", align_model="CONTRAlign",
+                          fold_model="CONTRAfold")
+        fa = [Fasta(n, s) for n, s in CONTRA_FAMILY]
+        if record:
+            with spans.record() as recs:
+                d.run(fa)
+        else:
+            recs = None
+            d.run(fa)
+        _CONTRA_RUNS[record] = (d.result, recs)
+    return _CONTRA_RUNS[record]
+
+
+def _bucket(n):
+    return -(-n // 32) * 32
+
+
+def test_contra_spans_nest_under_their_phase():
+    """Each CONTRAfold bucket is a `contrafold.batch` under the phase
+    "fold", the pair-CRF's one batch a `paircrf.batch` under "align", each
+    with its read-back under it and non-zero counters."""
+    res, recs = _contra_run(True)
+    folds = [sp for sp in recs if sp.name == "contrafold.batch"]
+    crfs = [sp for sp in recs if sp.name == "paircrf.batch"]
+    assert sorted(sp.attrs["L"] for sp in folds) == [32, 64]
+    assert sorted(sp.attrs["B"] for sp in folds) == [1, 2]
+    assert len(crfs) == 1 and crfs[0].attrs["B"] == 3
+    for sp, phase, readback in ([(f, "fold", "contrafold.readback") for f in folds]
+                                + [(crfs[0], "align", "paircrf.readback")]):
+        assert recs[sp.parent].name == phase and _under(recs, sp, "family")
+        kids = [k for k in recs if k.parent == sp.id]
+        assert [k.name for k in kids] == [readback]
+        assert sp.t0 <= kids[0].t0 <= kids[0].t1 <= sp.t1
+        assert sp.counts and all(v > 0 for v in sp.counts.values())
+    # the consensus of a one-sequence group folds again (Vienna's McCaskill)
+    assert {c["route"] for c in res["consensus_calls"]} >= {"mccaskill"}
+
+
+@pytest.mark.parametrize("pairs", [[(0, 1)], [(0, 1), (0, 2), (1, 2)]], ids=["one", "three"])
+def test_paircrf_counts_diagonals_and_cells(pairs):
+    """`diagonals` is the forward and the backward loop's steps,
+    2 (l1max + l2max + 1) at the padded lengths; `cells` the DP cells of
+    the true lengths, (len1 + 1)(len2 + 1) a pair, in 5 states."""
+    s1 = [CONTRA_FAMILY[i][1] for i, _ in pairs]
+    s2 = [CONTRA_FAMILY[j][1] for _, j in pairs]
+    with spans.record() as recs:
+        paircrf.batch_posteriors(s1, s2, 0.01, "cpu")
+    (sp,) = [r for r in recs if r.name == "paircrf.batch"]
+    l1max, l2max = _bucket(max(map(len, s1))), _bucket(max(map(len, s2)))
+    assert sp.attrs == {"B": len(pairs), "l1max": l1max, "l2max": l2max}
+    assert sp.counts == {
+        "diagonals": 2 * (l1max + l2max + 1),
+        "cells": 5 * sum((len(a) + 1) * (len(b) + 1) for a, b in zip(s1, s2))}
+
+
+@pytest.mark.parametrize("constrained", [False, True], ids=["free", "constrained"])
+def test_contrafold_counts_steps_and_cells(constrained):
+    """One `contrafold.batch` a bucket: `steps` the inside, F5, F5-outside
+    and outside loops' steps, 4 L; `cells` the triangle 1 <= i <= j <= n of
+    each true length n, n (n + 1) / 2 a sequence."""
+    seqs = [s for _, s in CONTRA_FAMILY]
+    cons = ["?" * len(s) for s in seqs] if constrained else None
+    with spans.record() as recs:
+        contrafold.batch_bp_posteriors(seqs, 0.0, "cpu", constraints=cons)
+    got = {sp.attrs["L"]: (sp.attrs["B"], sp.counts)
+           for sp in recs if sp.name == "contrafold.batch"}
+    want = {}
+    for s in seqs:
+        B, c = want.get(_bucket(len(s)), (0, 0))
+        want[_bucket(len(s))] = (B + 1, c + len(s) * (len(s) + 1) // 2)
+    assert got == {L: (B, {"steps": 4 * L, "cells": c}) for L, (B, c) in want.items()}
+
+
+def test_contra_spans_off_record_nothing(monkeypatch):
+    """With recording off the CONTRA models enter no span and count
+    nothing."""
+    entered = []
+    enter = spans.Span.__enter__
+
+    def keep(self):
+        entered.append(self.name)
+        return enter(self)
+
+    monkeypatch.setattr(spans.Span, "__enter__", keep)
+    seqs = [s for _, s in CONTRA_FAMILY]
+    contrafold.batch_bp_posteriors(seqs, 0.0, "cpu")
+    paircrf.batch_posteriors(seqs[:2], seqs[1:], 0.01, "cpu")
+    assert entered == [] and not spans.recording()
+
+
+def test_contra_recording_leaves_results_bit_equal():
+    off, _ = _contra_run(False)
+    on, _ = _contra_run(True)
+    assert on["ss_cons"] == off["ss_cons"] and on["rows"] == off["rows"]
+    assert on["score"] == off["score"] and on["tree"] == off["tree"]
+    assert on["device_dd"] == off["device_dd"]
+    assert np.array_equal(on["similarity"], off["similarity"])

@@ -1,14 +1,22 @@
-"""One cell through `portbench/span_run.py`, with the DD loop's counters.
+"""One cell through `portbench/span_run.py`, with the DD loop's and the
+CONTRA models' counters.
 
     python3 tools/dd_window.py --workload NAME --seed N --seconds S --trace 0|1
 
 Runs `span_run.main` with the same arguments (its line on standard output,
-its extra lines on standard error) and adds one line to standard error:
-`dd_counters: {...}`, the counters "iterations" and "step_kernel_bodies"
-summed over the `dd.loop` spans of the measured window (and of the whole
-run), with the loops that ran any body through the plain step.  On the card
-every body goes through the step kernels (`ops/dd_step_cuda`), so the two
-sums are equal.
+its extra lines on standard error) and adds to standard error, where the
+runner handed its spans to a reader (`--trace 1`):
+
+- `dd_counters: {...}`, the counters "iterations" and "step_kernel_bodies"
+  summed over the `dd.loop` spans of the measured window (and of the whole
+  run), with the loops that ran any body through the plain step.  On the
+  card every body goes through the step kernels (`ops/dd_step_cuda`), so
+  the two sums are equal.
+- `contra_counters: {...}`, the window's `paircrf.batch` and
+  `contrafold.batch` spans: how many, their seconds and their counters
+  summed, and the values of the readers `crf_kernels_per_diag` and
+  `crf_busy_pct` (`portbench/metrics/`), which `BENCHMARK.json` does not
+  list yet (None where the window ran no pair-CRF or has no device trace).
 """
 
 from __future__ import annotations
@@ -34,8 +42,15 @@ def sums(loops) -> dict:
     return dict(loops=len(loops), iterations=it, step_kernel_bodies=kb, loops_not_all_kernels=plain)
 
 
+def span_sums(recs, name: str, counters) -> dict:
+    batches = [sp for sp in recs if sp.name == name]
+    out = dict(spans=len(batches), seconds=sum(sp.t1 - sp.t0 for sp in batches))
+    out.update({c: sum(sp.counts.get(c, 0) for sp in batches) for c in counters})
+    return out
+
+
 def main(argv=None) -> int:
-    from portbench import span_run, spans
+    from portbench import harness, span_run, spans
 
     runs = []
     window_spans = spans.window_spans
@@ -56,6 +71,12 @@ def main(argv=None) -> int:
         every = [sp for sp in run.spans if sp.name == "dd.loop"]
         print("dd_counters: " + json.dumps(dict(window=sums(window), run=sums(every))),
               file=sys.stderr)
+        recs = window_spans(run)
+        contra = dict(paircrf=span_sums(recs, "paircrf.batch", ("diagonals", "cells")),
+                      contrafold=span_sums(recs, "contrafold.batch", ("steps", "cells")))
+        for name in ("crf_kernels_per_diag", "crf_busy_pct"):
+            contra[name] = harness.load_reader(name)(run)
+        print("contra_counters: " + json.dumps(contra), file=sys.stderr)
     return rc
 
 
