@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`dafs_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py dd_step [kernels length fold]   # those phases alone
+    python3 chip_smoke.py dd_step [kernels length fold paircrf]   # those phases alone
 
 1. Prints the card's `nvidia-smi` name and power limit; fails without CUDA.
 2. Builds the CUDA kernels from `dafs_tpu_torch/csrc/` (nvcc, sm_90a).
@@ -60,18 +60,19 @@
    after: path (a), `align_model="CONTRAlign", fold_model="CONTRAfold"`
    (the consensus with Vienna's parameters), on RF00005 and RF00017, and
    path (b), `use_bp_update=True, use_bp_update1=True` (bp-update with the
-   default models), on RF00005.  Path (a) must launch K3 and K4 (its
-   CONTRAfold fold and pair-CRF align are plain PyTorch on the card, and
-   no pair-HMM kernel runs), path (b) all five kernels.  Checks every row
-   and that `SS_cons` is balanced, and holds each tree topology to the
+   default models), on RF00005.  Path (a) must launch K3, K4 and the
+   pair-CRF kernels (its CONTRAfold fold is plain PyTorch on the card, and
+   no pair-HMM kernel runs), path (b) all five kernels and no pair-CRF
+   kernel.  Checks every row and that `SS_cons` is balanced, and holds
+   each tree topology to the
    `dafs_tpu` reference recorded on the CPU
    (`tests/snapshots/*_contrafold_contralign_cpu.txt`,
    `rf00005_bp_update_cpu.txt`), printing how many `SS_cons` and row
    columns agree with it; prints the wall, the phase split (for path (a)
-   the fold and align phases are the plain CONTRAfold and pair-CRF code),
-   the consensus calls and the launch counts.  Before the runs, holds the
-   plain CONTRAfold and pair-CRF code on the card to its CPU run on RF00005
-   inputs (1e-5 and 1e-6).
+   the fold phase is the plain CONTRAfold code, the align phase the
+   pair-CRF kernels), the consensus calls and the launch counts.  Before
+   the runs, holds the plain CONTRAfold code and the pair-CRF kernels on
+   the card to their CPU runs on RF00005 inputs (1e-5 and 1e-6).
 6. Length phase (between 3 and 4): each kernel's long variant, which the
    wrappers choose past the old limits, just past them and at 2048
    (K1/K2 and the posteriors at imax 1056 and 2048, B = 2; K3 at L 1056
@@ -118,6 +119,13 @@
    bound (the bytes a body must move at 3.35 TB/s), the floor (one empty
    launch) and one launch a kernel a body.  The slice phase prints the step
    kernels' launches beside K3's.
+6c. Pair-CRF phase (after 6b): the CONTRAlign pair-CRF's kernels
+   (`csrc/paircrf.cu`: forward, backward, posterior) at RF00005's bucket
+   (B 45, L 96) and at contra-trna's largest batch (B 105, L 96): the
+   posteriors bit-equal to the plain version on the card, each kernel's
+   CUDA-event ms and the codes-to-posteriors path's beside the plain
+   version's, each kernel's bound and the chain floor
+   (`paircrf_cuda.floor_probe`).
 7. Solvers phase (last): the host merge solvers, counts set to 0 before
    each run: (c) `--ipknot` and (d) `-m 0` on RF00005 with the options the
    CLI builds, each tree topology held to `dafs_tpu`'s CPU output
@@ -132,9 +140,9 @@
    through the port's host DD with K3 and K4: tree line, `SS_cons` and
    every row equal the frozen output.
 8. Prints the kernel table as one JSON line (K1-K4, the long variants,
-   the consensus's and the fold's kernels), then `{"ok": true, ...}`
-   last.  Every launch count in it was read after a run whose counts were
-   set to 0 just before: `launches` from the default path's two runs (the
+   the consensus's, the fold's, the DD step's and the pair-CRF's kernels),
+   then `{"ok": true, ...}` last.  Every launch count in it was read after
+   a run whose counts were set to 0 just before: `launches` from the default path's two runs (the
    slice phase, where the variants too are counted), `launches_by_path`
    from each run of the paths, solvers, options and mesh phases, and for the
    variants also `launches_length_phase`.
@@ -2164,6 +2172,135 @@ def dd_step_phase(dev):
     return rows
 
 
+# --------------------------------------------------------------- pair-CRF --
+# The CONTRAlign pair-CRF's kernels (csrc/paircrf.cu).  Operations a cell:
+# forward 12 log-adds and 26 adds and multiplies, backward 12 log-adds, 5
+# maxima and 30 adds and multiplies, posterior five Fast_Exps and 5
+# operations each, the clamp's two.
+
+CRF_FORWARD_OPS = 12 * LOG_ADD_OPS + 26
+CRF_BACKWARD_OPS = 12 * LOG_ADD_OPS + 35
+CRF_POSTERIOR_OPS = 5 * (EXP_OPS + 5) + 2
+PAIRCRF = ("paircrf_forward", "paircrf_backward", "paircrf_posterior")
+
+
+def paircrf_kernels():
+    from dafs_tpu_torch.ops import paircrf_cuda
+
+    return {"paircrf_forward": paircrf_cuda.FORWARD, "paircrf_backward": paircrf_cuda.BACKWARD,
+            "paircrf_posterior": paircrf_cuda.POSTERIOR}
+
+
+def paircrf_bound(args, kernel):
+    """Operations of the cells within the true lengths ((l1 + 1) x (l2 + 1)
+    a pass, l1 x l2 the posterior, and Z's four log-adds a pair); bytes: the
+    codes and lengths, and each kernel's own output within the lengths (F's
+    five states, Bm's M), the posterior reading those cells and writing its
+    whole padded plane."""
+    c1, n1, c2, n2 = (a.cpu().numpy() for a in args)
+    n1, n2 = n1.astype(np.int64), n2.astype(np.int64)
+    B, imax = c1.shape
+    W = c2.shape[1]
+    codes = 4 * (c1.size + c2.size + 2 * B)
+    if kernel == "paircrf_posterior":
+        cells = float((n1 * n2).sum())
+        return bound(cells * CRF_POSTERIOR_OPS + B * 4 * LOG_ADD_OPS,
+                     codes + 24 * cells + 4 * B * (imax - 1) * (W - 1))
+    cells = float(((n1 + 1) * (n2 + 1)).sum())
+    if kernel == "paircrf_forward":
+        return bound(cells * CRF_FORWARD_OPS, codes + 20 * cells)
+    return bound(cells * CRF_BACKWARD_OPS, codes + 4 * cells)
+
+
+def paircrf_inputs(seqs1, seqs2, dev, l1max=None, l2max=None):
+    """The pair-CRF's inputs as `paircrf.batch_posteriors` builds them, at
+    the 32-buckets of the longest sequences unless given."""
+    import torch
+
+    from dafs_tpu_torch.ops import paircrf
+
+    l1max = l1max or -(-max(map(len, seqs1)) // 32) * 32
+    l2max = l2max or -(-max(map(len, seqs2)) // 32) * 32
+    c1, n1 = paircrf.encode_batch(seqs1, l1max)
+    c2, n2 = paircrf.encode_batch(seqs2, l2max)
+    return [torch.from_numpy(a).to(dev) for a in (c1, n1, c2, n2)]
+
+
+def paircrf_shapes(dev):
+    """(label, inputs): RF00005's 45 pairs (L 96) and contra-trna's largest
+    batch, the 105 pairs of its 15-sequence family (mutated RF00005
+    members, L 96; portbench/traffic/trna11.json)."""
+    from portbench import traffic
+
+    pool = traffic.Families(traffic.load_mix("trna11"), 0).pool
+    (fam,) = [[s for _, s in f] for f in pool if len(f) == 15]
+    out = []
+    for label, ss in (("RF00005", [f.seq for f in read_fasta("RF00005_0.fa")]),
+                      ("contra-trna 15", fam)):
+        pairs = [(i, j) for i in range(len(ss)) for j in range(i + 1, len(ss))]
+        out.append((label, paircrf_inputs([ss[i] for i, _ in pairs],
+                                          [ss[j] for _, j in pairs], dev)))
+    return out
+
+
+def paircrf_phase(dev):
+    """The pair-CRF kernels at RF00005's bucket and at contra-trna's largest
+    batch: the posteriors bit-equal to the plain version on the card, each
+    kernel's CUDA-event ms, the codes-to-posteriors path's, beside the plain
+    version's (one call: it has no separate passes), each kernel's bound,
+    and the chain floor (`paircrf_cuda.floor_probe`: as many diagonals as
+    the longest pair has, the backward M chain and the hand-over alone, at
+    the passes' warps).  Returns {kernel: row}, each row at the last shape
+    with both under `by_case`."""
+    import torch
+
+    from dafs_tpu_torch.ops import paircrf, paircrf_cuda
+
+    rows, by_case = {}, {name: {} for name in PAIRCRF}
+    for label, args in paircrf_shapes(dev):
+        tab = paircrf.tables(dev)
+        B, imax = args[0].shape
+        want = paircrf.forward_backward_posterior_plain(*args, tab)
+        exact, err = same((paircrf.forward_backward_posterior(*args, tab),), (want,))
+        plain_ms = once_ms(lambda: paircrf.forward_backward_posterior_plain(*args, tab))
+        path_ms = cuda_ms(lambda: paircrf.forward_backward_posterior(*args, tab), 20)
+        steps = int((args[1] + args[3]).max()) + 1
+        nw = paircrf_cuda.warps(imax)
+        buf = torch.zeros(B * 32 * nw, dtype=torch.float32, device=dev)
+        floor_ms = cuda_ms(lambda: paircrf_cuda.floor_probe(buf, steps, nw, B), 20)
+        print(f"kernel paircrf {label} B={B} L={imax - 1}: posteriors bit-equal={exact} "
+              f"max_abs_err={err!r}; codes to posteriors {path_ms:.4f} ms (the two passes "
+              f"side by side, then the posterior kernel), the plain version {plain_ms:.1f} ms; "
+              f"floor {floor_ms:.4f} ms ({steps} diagonals of four dependent log-adds and "
+              f"the hand-over, {nw} warps)", flush=True)
+        if not exact:
+            raise AssertionError(f"paircrf {label}: the kernels differ from the plain "
+                                 f"version (max_abs_err {err})")
+        F = paircrf_cuda.forward(*args, tab)
+        Bm = paircrf_cuda.backward(*args, tab)
+        for name, fn in (("paircrf_forward", lambda: paircrf_cuda.forward(*args, tab)),
+                         ("paircrf_backward", lambda: paircrf_cuda.backward(*args, tab)),
+                         ("paircrf_posterior",
+                          lambda: paircrf_cuda.posterior(F, Bm, *args, tab))):
+            ms = cuda_ms(fn, 20)
+            bound_ms, bound_by, bound_kind = paircrf_bound(args, name)
+            floor = None if name == "paircrf_posterior" else floor_ms
+            print(f"  {name}: {ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by}), kernel at "
+                  f"{bound_ms / ms:.2e} of it" + (f"; floor {floor:.4f} ms, kernel at "
+                                                  f"{ms / floor:.2f} times it" if floor else ""))
+            case = dict(shape=f"B={B}, L={imax - 1}", ms=ms, plain_ms=plain_ms, path_ms=path_ms,
+                        bound_ms=bound_ms, floor_ms=floor)
+            by_case[name][label] = case
+            rows[name] = dict(name=name, route="cuda", source="dafs_tpu_torch/csrc/paircrf.cu",
+                              replaces="dafs_tpu/ops/paircrf.py:58 (XLA scans)",
+                              max_abs_err=err, bound_by=bound_by, bound_kind=bound_kind,
+                              library_ms=None,
+                              launched_by="paircrf_cuda.forward_backward_posterior", **case)
+    for name, row in rows.items():
+        row["by_case"] = by_case[name]
+    return rows
+
+
 CONTRA = dict(align_model="CONTRAlign", fold_model="CONTRAfold")
 BP_UPDATE = dict(use_bp_update=True, use_bp_update1=True)
 # (path, align_and_fold keywords, family, dafs_tpu's CPU output of it)
@@ -2186,20 +2323,21 @@ def check_balanced(name, ss):
 
 
 def plain_models_on_card(dev):
-    """The plain CONTRAfold and pair-CRF code on the card against the same
-    calls on the CPU, at RF00005's bucket."""
+    """CONTRAfold (plain PyTorch on the card) and the pair-CRF (its kernels
+    on the card, the plain version on the CPU) against the same calls on
+    the CPU, at RF00005's bucket."""
     from dafs_tpu_torch.ops import contrafold, paircrf
 
     seqs = [f.seq for f in read_fasta("RF00005_0.fa")]
     cf = [contrafold.batch_bp_posteriors(seqs[:2], 0.0, d) for d in (dev, "cpu")]
     s1, s2 = [seqs[0], seqs[3], seqs[7]], [seqs[5], seqs[1], seqs[9]]
     crf = [paircrf.batch_posteriors(s1, s2, 0.0, d) for d in (dev, "cpu")]
-    for name, (got, want), tol in (("CONTRAfold", cf, 1e-5), ("pair-CRF", crf, 1e-6)):
+    for name, (got, want), tol in (("plain CONTRAfold", cf, 1e-5), ("pair-CRF", crf, 1e-6)):
         err = max(float(np.abs(g.astype(np.float64) - w).max()) for g, w in zip(got, want))
-        print(f"plain {name} on the card against its CPU run: max_abs_err={err!r} "
+        print(f"{name} on the card against its CPU run: max_abs_err={err!r} "
               f"(bound {tol})")
         if not err <= tol:
-            raise AssertionError(f"plain {name}: the card's run differs from the CPU's")
+            raise AssertionError(f"{name}: the card's run differs from the CPU's")
 
 
 def paths_phase(dev):
@@ -2216,16 +2354,18 @@ def paths_phase(dev):
         print(f"{label}: {wall:.3f}s wall; {phases}")
         if path == "a":
             print(f"{label}: plain CONTRAfold (fold phase) {res.phase_seconds['fold']:.3f}s, "
-                  f"plain pair-CRF (align phase) {res.phase_seconds['align']:.3f}s")
+                  f"the pair-CRF kernels (align phase) {res.phase_seconds['align']:.3f}s")
         consensus_summary(label, res.consensus_calls)
         print(f"{label} launch counts: {counts}")
         check_consensus(label, res.consensus_calls, counts)
-        need = ("nussinov", "nw") + (PAIRHMM if path == "b" else ())
+        need = ("nussinov", "nw") + (PAIRHMM if path == "b" else PAIRCRF)
         for name in need:
             if counts[name] <= 0:
                 raise AssertionError(f"{label}: kernel {name} was not launched")
         if path == "a" and any(counts[name] for name in PAIRHMM):
             raise AssertionError(f"{label}: a pair-HMM kernel ran under CONTRAlign")
+        if path == "b" and any(counts[name] for name in PAIRCRF):
+            raise AssertionError(f"{label}: a pair-CRF kernel ran under ProbCons")
         check_rows(res, fa)
         check_balanced(label, res.ss_cons)
         ref, ref_ss, ref_names, ref_rows = read_snapshot(ref_name)
@@ -2306,7 +2446,9 @@ def timed_run(fa, dev, **kw):
 
 
 def all_kernels():
-    return {**kernels(), **long_kernels()}
+    """Every kernel whose launches a run counts: the default path's, the
+    long variants and the pair-CRF's (path (a) only)."""
+    return {**kernels(), **long_kernels(), **paircrf_kernels()}
 
 
 def against_reference(label, res, ref_name):
@@ -2882,7 +3024,7 @@ def main() -> int:
         return out
 
     alone = {"kernels": kernel_phase, "length": length_phase, "fold": fold_phase,
-             "dd_step": dd_step_phase}
+             "dd_step": dd_step_phase, "paircrf": paircrf_phase}
     if sys.argv[1:]:
         for phase in sys.argv[1:]:
             rows.update(run(phase, alone[phase]))
@@ -2893,6 +3035,7 @@ def main() -> int:
     rows.update(run("length", length_phase))
     rows.update(run("fold", fold_phase))
     rows.update(run("dd_step", dd_step_phase))
+    rows.update(run("paircrf", paircrf_phase))
     counts = run("slice", slice_phase)
     ali_rows, by_path = run("consensus", consensus_phase)
     rows.update(ali_rows)

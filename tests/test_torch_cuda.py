@@ -19,7 +19,7 @@ import torch
 import chip_smoke
 from dafs_tpu_torch.ops import (
     alifold, alifold_cuda, contrafold, cuda_lib, dd_step_cuda, mccaskill, mccaskill_cuda,
-    nussinov, nussinov_cuda, nw, nw_cuda, paircrf, pairhmm, pairhmm_cuda,
+    nussinov, nussinov_cuda, nw, nw_cuda, paircrf, paircrf_cuda, pairhmm, pairhmm_cuda,
 )
 from dafs_tpu_torch.ops import alifold_kernel as ak
 
@@ -53,6 +53,7 @@ def _decoder_args(dev, rng, L=64):
     (alifold_cuda, "INSIDE"), (alifold_cuda, "EXTERIOR"), (alifold_cuda, "OUTSIDE"),
     (mccaskill_cuda, "INSIDE"), (mccaskill_cuda, "EXTERIOR"), (mccaskill_cuda, "OUTSIDE"),
     (dd_step_cuda, "CANDIDATES"), (dd_step_cuda, "UPDATE"), (dd_step_cuda, "SCALARS"),
+    (paircrf_cuda, "FORWARD"), (paircrf_cuda, "BACKWARD"), (paircrf_cuda, "POSTERIOR"),
 ])
 def test_broken_library_raises(module, attr, dev, monkeypatch):
     """A CUDA tensor goes to the kernel or raises: a wrapper whose library
@@ -80,6 +81,8 @@ def test_broken_library_raises(module, attr, dev, monkeypatch):
 
             probs = [(*_problem(*p[:3]), *p[3:]) for p in PROBLEMS[2:4]]
             dd.solve_by_dd_batch(probs, device=dev, t_max=20, **KW)
+        elif module is paircrf_cuda:
+            paircrf.batch_posteriors(["GGGAAACCC", "GCGCAAUU"], ["GGAACC", "GCGAUUA"], 0.0, dev)
         else:
             alifold.Alifold(0.0).consensus(["GGGC-AAAGCCC", "GG-CAAA-GCCC"], dev)
     assert broken.launches == 0
@@ -279,6 +282,116 @@ def test_paircrf_matches_cpu(dev):
     for g, w in zip(paircrf.batch_posteriors(s1, s2, 0.0, dev),
                     paircrf.batch_posteriors(s1, s2, 0.0, "cpu")):
         np.testing.assert_allclose(g, w, atol=1e-6, rtol=0)
+
+
+def _crf_equal(args):
+    """The kernels' posteriors are the plain version's on the card, bit for
+    bit; returns them."""
+    tab = paircrf.tables(args[0].device)
+    got = paircrf.forward_backward_posterior(*args, tab)
+    want = paircrf.forward_backward_posterior_plain(*args, tab)
+    assert got.shape == want.shape and torch.equal(got, want)
+    return got
+
+
+_CRF_CASES = ["ragged", "B 1", "length 1", "unknown bases", "bucket edges"]
+
+
+@pytest.mark.parametrize("case", _CRF_CASES)
+def test_paircrf_kernels_match_plain(case, dev):
+    """The three pair-CRF kernels against the plain version on the card:
+    ragged batches with l1max != l2max, one pair, length-1 pairs, unknown
+    bases (code 4), lengths at the 32-buckets' edges (32, 33, 96, 97) in
+    one batch and each in its own bucket."""
+    rng = np.random.default_rng(_CRF_CASES.index(case) + 10)
+    if case == "ragged":
+        batches = [(_rna(rng, (5, 31, 33, 70, 2, 64, 96)), _rna(rng, (120, 32, 9, 75, 1, 40, 33)))]
+    elif case == "B 1":
+        batches = [(_rna(rng, (77,)), _rna(rng, (91,)))]
+    elif case == "length 1":
+        batches = [(_rna(rng, (1, 1, 50)), _rna(rng, (1, 50, 1)))]
+    elif case == "unknown bases":
+        alphabet = list("ACGUNTX")
+        seqs = ["".join(rng.choice(alphabet, size=n)) for n in (40, 63, 17, 80)]
+        batches = [(seqs, seqs[::-1])]
+    else:
+        edges = (32, 33, 96, 97)
+        batches = [(_rna(rng, edges), _rna(rng, edges[::-1]))]
+        batches += [(_rna(rng, (n,)), _rna(rng, (n,))) for n in edges]
+    for s1, s2 in batches:
+        _crf_equal(chip_smoke.paircrf_inputs(s1, s2, dev))
+
+
+def test_paircrf_largest_contra_batch(dev):
+    """contra-trna's largest batch: the 105 pairs of its 15-sequence family
+    (mutated RF00005 members, L 96), bit-equal, one launch of each kernel,
+    and the span counts `kernel_batches` 1."""
+    from dafs_tpu_torch.utils import spans
+    from portbench import traffic
+
+    pool = traffic.Families(traffic.load_mix("trna11"), 2217000001).pool
+    (fam,) = [[s for _, s in f] for f in pool if len(f) == 15]
+    s1 = [a for k, a in enumerate(fam) for _ in fam[k + 1:]]
+    s2 = [b for k, _ in enumerate(fam) for b in fam[k + 1:]]
+    assert len(s1) == 105
+    args = chip_smoke.paircrf_inputs(s1, s2, dev)
+    assert args[0].shape[1] - 1 == 96 and args[2].shape[1] - 1 == 96
+    _crf_equal(args)
+    kernels = (paircrf_cuda.FORWARD, paircrf_cuda.BACKWARD, paircrf_cuda.POSTERIOR)
+    before = [k.launches for k in kernels]
+    with spans.record() as recs:
+        paircrf.batch_posteriors(s1, s2, 0.01, dev)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
+    (sp,) = [r for r in recs if r.name == "paircrf.batch"]
+    assert sp.counts["kernel_batches"] == 1 and sp.counts["diagonals"] == 2 * 193
+
+
+@pytest.mark.parametrize("imax", [1025, 1500])
+def test_paircrf_strip_variant_matches_plain(imax, dev):
+    """Above 1024 rows the passes walk strips of 1024 rows (one launch
+    each), bit-equal to the plain version."""
+    rng = np.random.default_rng(imax)
+    args = chip_smoke.paircrf_inputs(_rna(rng, (imax - 1, 700, 1)), _rna(rng, (40, 64, 9)), dev,
+                                     l1max=imax - 1, l2max=64)
+    kernels = (paircrf_cuda.FORWARD, paircrf_cuda.BACKWARD, paircrf_cuda.POSTERIOR)
+    before = [k.launches for k in kernels]
+    got = paircrf.forward_backward_posterior(*args, paircrf.tables(dev))
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
+    assert torch.equal(got, paircrf.forward_backward_posterior_plain(*args, paircrf.tables(dev)))
+
+
+def test_paircrf_wrapper_rejects_bad_inputs(dev):
+    """Above the ceiling of 4096 rows, above MAX_COLS columns, CPU tensors,
+    codes that are not int32, and codes that are not contiguous: ValueError,
+    nothing launched."""
+    rng = np.random.default_rng(5)
+    tab = paircrf.tables(dev)
+    kernels = (paircrf_cuda.FORWARD, paircrf_cuda.BACKWARD, paircrf_cuda.POSTERIOR)
+    before = [k.launches for k in kernels]
+    over = chip_smoke.paircrf_inputs(["ACGU"], ["ACGU"], dev, l1max=paircrf_cuda.CEILING,
+                                     l2max=32)
+    for fn in (paircrf.forward_backward_posterior, paircrf_cuda.forward,
+               paircrf_cuda.backward):
+        with pytest.raises(ValueError, match="ceiling of 4096"):
+            fn(*over, tab)
+    wide = chip_smoke.paircrf_inputs(["ACGU"], ["ACGU"], dev, l1max=32,
+                                     l2max=paircrf_cuda.MAX_COLS)
+    with pytest.raises(ValueError, match="padded lengths"):
+        paircrf_cuda.forward_backward_posterior(*wide, tab)
+    args = chip_smoke.paircrf_inputs(_rna(rng, (20, 30)), _rna(rng, (25, 9)), dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        paircrf_cuda.forward_backward_posterior(*(a.cpu() for a in args), paircrf.tables("cpu"))
+    with pytest.raises(ValueError, match="int32"):
+        paircrf_cuda.forward_backward_posterior(args[0].long(), *args[1:], tab)
+    with pytest.raises(ValueError, match="int32"):
+        paircrf_cuda.forward_backward_posterior(*args[:3], args[3].long(), tab)
+    strided = torch.zeros((2, 2 * args[2].shape[1]), dtype=torch.int32, device=dev)[:, ::2]
+    strided.copy_(args[2])
+    with pytest.raises(ValueError, match="contiguous"):
+        paircrf_cuda.forward_backward_posterior(*args[:2], strided, args[3], tab)
+    with pytest.raises(ValueError, match="float32"):
+        paircrf_cuda.forward_backward_posterior(*args, {**tab, "pair": tab["pair"].double()})
+    assert [k.launches for k in kernels] == before
 
 
 @pytest.mark.parametrize("constrained", [False, True])

@@ -243,7 +243,8 @@ def _bucket(n):
 def test_contra_spans_nest_under_their_phase():
     """Each CONTRAfold bucket is a `contrafold.batch` under the phase
     "fold", the pair-CRF's one batch a `paircrf.batch` under "align", each
-    with its read-back under it and non-zero counters."""
+    with its read-back under it and non-zero counters, but for
+    `kernel_batches`, 0 on the CPU."""
     res, recs = _contra_run(True)
     folds = [sp for sp in recs if sp.name == "contrafold.batch"]
     crfs = [sp for sp in recs if sp.name == "paircrf.batch"]
@@ -256,7 +257,8 @@ def test_contra_spans_nest_under_their_phase():
         kids = [k for k in recs if k.parent == sp.id]
         assert [k.name for k in kids] == [readback]
         assert sp.t0 <= kids[0].t0 <= kids[0].t1 <= sp.t1
-        assert sp.counts and all(v > 0 for v in sp.counts.values())
+        assert sp.counts and all(v > 0 for k, v in sp.counts.items() if k != "kernel_batches")
+    assert crfs[0].counts["kernel_batches"] == 0
     # the consensus of a one-sequence group folds again (Vienna's McCaskill)
     assert {c["route"] for c in res["consensus_calls"]} >= {"mccaskill"}
 
@@ -275,7 +277,25 @@ def test_paircrf_counts_diagonals_and_cells(pairs):
     assert sp.attrs == {"B": len(pairs), "l1max": l1max, "l2max": l2max}
     assert sp.counts == {
         "diagonals": 2 * (l1max + l2max + 1),
-        "cells": 5 * sum((len(a) + 1) * (len(b) + 1) for a, b in zip(s1, s2))}
+        "cells": 5 * sum((len(a) + 1) * (len(b) + 1) for a, b in zip(s1, s2)),
+        "kernel_batches": 0}
+
+
+def test_paircrf_counts_no_kernel_batch_on_the_cpu():
+    """Through a whole `-s CONTRAfold -a CONTRAlign` family on the CPU:
+    every `paircrf.batch` ran the plain version, `kernel_batches` 0, and
+    counts `diagonals` and `cells` from its attributes and the family's
+    pairs as before."""
+    res, recs = _contra_run(True)
+    crfs = [sp for sp in recs if sp.name == "paircrf.batch"]
+    seqs = [s for _, s in CONTRA_FAMILY]
+    pairs = [(a, b) for k, a in enumerate(seqs) for b in seqs[k + 1:]]
+    assert crfs and all(sp.counts["kernel_batches"] == 0 for sp in crfs)
+    assert sum(sp.attrs["B"] for sp in crfs) == len(pairs)
+    for sp in crfs:
+        assert sp.counts["diagonals"] == 2 * (sp.attrs["l1max"] + sp.attrs["l2max"] + 1)
+    assert sum(sp.counts["cells"] for sp in crfs) == 5 * sum(
+        (len(a) + 1) * (len(b) + 1) for a, b in pairs)
 
 
 @pytest.mark.parametrize("constrained", [False, True], ids=["free", "constrained"])

@@ -14,7 +14,9 @@ runner handed its spans to a reader (`--trace 1`):
   the two sums are equal.
 - `contra_counters: {...}`, the window's `paircrf.batch` and
   `contrafold.batch` spans: how many, their seconds and their counters
-  summed, and the values of the readers `crf_kernels_per_diag` and
+  summed (`paircrf.batch`'s `kernel_batches` beside `diagonals` and
+  `cells`: on the card every batch runs the pair-CRF kernels, so it equals
+  the span count), and the values of the readers `crf_kernels_per_diag` and
   `crf_busy_pct` (`portbench/metrics/`), which `BENCHMARK.json` does not
   list yet (None where the window ran no pair-CRF or has no device trace).
 """
@@ -72,7 +74,8 @@ def main(argv=None) -> int:
         print("dd_counters: " + json.dumps(dict(window=sums(window), run=sums(every))),
               file=sys.stderr)
         recs = window_spans(run)
-        contra = dict(paircrf=span_sums(recs, "paircrf.batch", ("diagonals", "cells")),
+        contra = dict(paircrf=span_sums(recs, "paircrf.batch",
+                                        ("diagonals", "cells", "kernel_batches")),
                       contrafold=span_sums(recs, "contrafold.batch", ("steps", "cells")))
         for name in ("crf_kernels_per_diag", "crf_busy_pct"):
             contra[name] = harness.load_reader(name)(run)
