@@ -42,8 +42,8 @@
 //    distributed shared memory (DSMEM).  Above that the tables are in
 //    global memory, L2-resident (2 L*L floats a problem), read with
 //    ld.global.cg since other SMs wrote them.  At the main path's widths
-//    the on-chip tables are the faster layout (decoder_variants.py times
-//    both).
+//    the on-chip tables are the faster layout (both were timed when K3 was
+//    redesigned for Hopper; CHANGES.md records the times).
 // 5. Traceback codes are int16 (3 + o <= 1026 at L = 1024), packed as the
 //    upper triangle (code_index).  Where they fit beside the tables (L <= 389 at
 //    C = 8), every CTA writes its codes straight into the shared memory of

@@ -55,8 +55,8 @@
 // scan); 8-byte copies with column 0 kept out of the lanes; a ring of whole
 // rows copied coalesced, which each lane reads its columns from; a
 // traceback that loads the next code word a step ahead.
-// decoder_variants.py times the costs of the copies, the code stores and
-// the walk.
+// The costs of the copies, the code stores and the walk were timed when K4
+// was redesigned for Hopper; CHANGES.md records the times.
 
 #include "common.cuh"
 

@@ -47,7 +47,7 @@
 //   the chain alone the barrier is cheap up to four warps (0.028 ms against
 //   0.026 ms with one warp and none) and doubles it at eleven (0.130 against
 //   0.067 ms); in the kernel, leaving it out saves a third at L <= 320
-//   (decoder_variants.py, `no barrier`), because every diagonal then takes
+//   (timed on a copy without it; CHANGES.md), because every diagonal then takes
 //   as long as its slowest warp.  Skewed warps that wait for each other's
 //   slots by polling a tag in shared memory were tried and dropped: the
 //   chain alone was slower with them than with the barrier at every warp
@@ -63,8 +63,8 @@
 //   coalesced along j.  ops/pairhmm_cuda.py launches the two passes on two
 //   streams, so that they run side by side, and this kernel behind both.
 //
-// decoder_variants.py times this design against copies with one part left
-// out or changed.
+// This design was timed against copies with one part left out or changed
+// when K1 and K2 were redesigned for Hopper; CHANGES.md records the times.
 //
 // Long variant (dafs_pairhmm_{forward,backward}_long, for imax above 1024
 // up to the ceiling of 4096 in ops/pairhmm_cuda.py).  A block of 1024

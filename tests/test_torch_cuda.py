@@ -6,7 +6,11 @@ the JAX-importing tests/conftest.py is not loaded):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-`chip_smoke.py` repeats the kernel comparison at the main path's shapes.
+They are the port's one check on the card: every kernel against its
+plain version, and the end-to-end runs of `RUNS` against their
+references and launch rules (`tests/card_checks.py`).  `chip_smoke.py`
+times the kernels, holding each to its plain version at the shapes it
+times, and reads each kernel's launches from the runs of `RUNS`.
 """
 
 import ctypes
@@ -16,12 +20,13 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from dafs_tpu_torch.ops import (
     alifold, alifold_cuda, contrafold, cuda_lib, dd_step_cuda, mccaskill, mccaskill_cuda,
     nussinov, nussinov_cuda, nw, nw_cuda, paircrf, paircrf_cuda, pairhmm, pairhmm_cuda,
 )
 from dafs_tpu_torch.ops import alifold_kernel as ak
+from tests import card_checks
+from tests.card_checks import PAIRHMM, RUNS
 
 pytestmark = pytest.mark.cuda
 
@@ -173,6 +178,7 @@ def _consensus_cases():
     r5, r17 = _snapshot_rows("rf00005_default_tpu.txt"), _snapshot_rows("rf00017_default_tpu.txt")
     return {
         "n 1056": (_tiled(r17, 1056), True, None, None),
+        "n 1056, NS 2": (_tiled(r17[:2], 1056), True, None, None),
         "RF00005 final": (r5, True, None, None),
         "RF00005 final, Vienna": (r5, False, None, None),
         "RF00005 final, BCUT 8": (r5, True, None, 8),
@@ -187,7 +193,7 @@ def _consensus_cases():
 
 @pytest.mark.parametrize("case", [
     "RF00005 final", "RF00005 final, Vienna", "RF00005 final, BCUT 8", "RF00017 final", "NS 2",
-    "NS 3, constrained", "NS 50", "NS 50, Vienna, BCUT 31", "n 1056",
+    "NS 3, constrained", "NS 50", "NS 50, Vienna, BCUT 31", "n 1056", "n 1056, NS 2",
 ])
 def test_consensus_kernels_match_plain(case, dev):
     """The consensus kernels against the plain loops on the card, through
@@ -202,7 +208,7 @@ def test_consensus_kernels_match_plain(case, dev):
     args = alifold.device_args(x, dev)
     # past n of about 520 one ladder step moves Q by more than the ladder's
     # window, so a long alignment starts from a scale with Q near 1
-    sc0 = alifold.SC0 if n < 520 else chip_smoke.stable_scale(args, n, x["bsn0"], BCUT)
+    sc0 = alifold.SC0 if n < 520 else card_checks.stable_scale(args, n, x["bsn0"], BCUT)
     want = alifold.partition(args, n, x["bsn0"], sc0, BCUT, ak.inside_outside)
     got = alifold.partition(args, n, x["bsn0"], sc0, BCUT, alifold_cuda.call_loops())
     np.testing.assert_allclose(got[0], want[0], rtol=2e-4, atol=1e-6)
@@ -245,6 +251,42 @@ def test_consensus_ladder_from_an_overflowing_scale(case, dev):
     assert got[2:] == want[2:]
     np.testing.assert_allclose(got[1], want[1], rtol=2e-4, atol=0)
     np.testing.assert_allclose(got[0], want[0], rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["RF00005 final", "RF00017 final", "NS 50"])
+def test_consensus_kernels_match_plain_steps(case, dev):
+    """Each consensus kernel alone at the call's settled scale against its
+    plain step on the card: qb, q1, qn and Q within rtol 2e-4 and a
+    millionth of their largest value, pout within rtol 2e-4 / atol 1e-6;
+    one launch, two runs bit-equal."""
+    seqs, bl, _, _ = _consensus_cases()[case]
+    card_checks.consensus_steps(dev, seqs, bl)
+
+
+@pytest.mark.parametrize("NS,n", [(2, 1056), (10, 1056), (10, 2048)])
+def test_consensus_past_rf00017_widths(NS, n, dev):
+    """RF00017's rows tiled to n columns, from a scale with Q near 1: Q
+    finite, pout in [0, 1 + 2e-4] (the consensus's rtol; it clips to [0,
+    1]), two runs bit-equal; up to n 1056 an attempt at a scale where Q
+    overflows is read alike by the kernels and the plain loops (Q not
+    finite on both, pout finite on both or neither)."""
+    seqs = _tiled(_snapshot_rows("rf00017_default_tpu.txt")[:NS], n)
+    x = alifold._inputs(seqs, True, None)
+    BCUT = alifold._bcut(x["S"], n)
+    args = alifold.device_args(x, dev)
+    sc = card_checks.stable_scale(args, n, x["bsn0"], BCUT)
+    p = ak.prepare(*args, n, sc, x["bsn0"])
+    pout, Q = [t.clone() for t in alifold_cuda.inside_outside(p, n, BCUT=BCUT)]
+    _equal(alifold_cuda.inside_outside(p, n, BCUT=BCUT), (pout, Q))
+    assert bool(torch.isfinite(Q)) and bool(torch.isfinite(pout).all())
+    assert float(pout.min()) >= 0.0 and float(pout.max()) <= 1.0 + 2e-4
+    if n <= 1056:
+        over = ak.prepare(*args, n, np.float32(sc * np.float32((1e39 / float(Q)) ** (1.0 / n))),
+                          x["bsn0"])
+        read = [(bool(torch.isfinite(q)), bool(torch.isfinite(o).all()))
+                for o, q in (alifold_cuda.inside_outside(over, n, BCUT=BCUT),
+                             ak.inside_outside(over, n, BCUT=BCUT))]
+        assert read[0] == read[1] and not read[0][0]
 
 
 def test_alifold_wrapper_rejects_bad_inputs(dev):
@@ -294,7 +336,7 @@ def _crf_equal(args):
     return got
 
 
-_CRF_CASES = ["ragged", "B 1", "length 1", "unknown bases", "bucket edges"]
+_CRF_CASES = ["ragged", "B 1", "length 1", "unknown bases", "bucket edges", "RF00005 all pairs"]
 
 
 @pytest.mark.parametrize("case", _CRF_CASES)
@@ -302,7 +344,7 @@ def test_paircrf_kernels_match_plain(case, dev):
     """The three pair-CRF kernels against the plain version on the card:
     ragged batches with l1max != l2max, one pair, length-1 pairs, unknown
     bases (code 4), lengths at the 32-buckets' edges (32, 33, 96, 97) in
-    one batch and each in its own bucket."""
+    one batch and each in its own bucket, RF00005's 45 pairs (L 96)."""
     rng = np.random.default_rng(_CRF_CASES.index(case) + 10)
     if case == "ragged":
         batches = [(_rna(rng, (5, 31, 33, 70, 2, 64, 96)), _rna(rng, (120, 32, 9, 75, 1, 40, 33)))]
@@ -314,12 +356,16 @@ def test_paircrf_kernels_match_plain(case, dev):
         alphabet = list("ACGUNTX")
         seqs = ["".join(rng.choice(alphabet, size=n)) for n in (40, 63, 17, 80)]
         batches = [(seqs, seqs[::-1])]
+    elif case == "RF00005 all pairs":
+        seqs = [f.seq for f in card_checks.read_fasta("RF00005_0.fa")]
+        batches = [([a for k, a in enumerate(seqs) for _ in seqs[k + 1:]],
+                    [b for k, _ in enumerate(seqs) for b in seqs[k + 1:]])]
     else:
         edges = (32, 33, 96, 97)
         batches = [(_rna(rng, edges), _rna(rng, edges[::-1]))]
         batches += [(_rna(rng, (n,)), _rna(rng, (n,))) for n in edges]
     for s1, s2 in batches:
-        _crf_equal(chip_smoke.paircrf_inputs(s1, s2, dev))
+        _crf_equal(card_checks.paircrf_inputs(s1, s2, dev))
 
 
 def test_paircrf_largest_contra_batch(dev):
@@ -334,7 +380,7 @@ def test_paircrf_largest_contra_batch(dev):
     s1 = [a for k, a in enumerate(fam) for _ in fam[k + 1:]]
     s2 = [b for k, _ in enumerate(fam) for b in fam[k + 1:]]
     assert len(s1) == 105
-    args = chip_smoke.paircrf_inputs(s1, s2, dev)
+    args = card_checks.paircrf_inputs(s1, s2, dev)
     assert args[0].shape[1] - 1 == 96 and args[2].shape[1] - 1 == 96
     _crf_equal(args)
     kernels = (paircrf_cuda.FORWARD, paircrf_cuda.BACKWARD, paircrf_cuda.POSTERIOR)
@@ -351,7 +397,7 @@ def test_paircrf_strip_variant_matches_plain(imax, dev):
     """Above 1024 rows the passes walk strips of 1024 rows (one launch
     each), bit-equal to the plain version."""
     rng = np.random.default_rng(imax)
-    args = chip_smoke.paircrf_inputs(_rna(rng, (imax - 1, 700, 1)), _rna(rng, (40, 64, 9)), dev,
+    args = card_checks.paircrf_inputs(_rna(rng, (imax - 1, 700, 1)), _rna(rng, (40, 64, 9)), dev,
                                      l1max=imax - 1, l2max=64)
     kernels = (paircrf_cuda.FORWARD, paircrf_cuda.BACKWARD, paircrf_cuda.POSTERIOR)
     before = [k.launches for k in kernels]
@@ -368,17 +414,17 @@ def test_paircrf_wrapper_rejects_bad_inputs(dev):
     tab = paircrf.tables(dev)
     kernels = (paircrf_cuda.FORWARD, paircrf_cuda.BACKWARD, paircrf_cuda.POSTERIOR)
     before = [k.launches for k in kernels]
-    over = chip_smoke.paircrf_inputs(["ACGU"], ["ACGU"], dev, l1max=paircrf_cuda.CEILING,
+    over = card_checks.paircrf_inputs(["ACGU"], ["ACGU"], dev, l1max=paircrf_cuda.CEILING,
                                      l2max=32)
     for fn in (paircrf.forward_backward_posterior, paircrf_cuda.forward,
                paircrf_cuda.backward):
         with pytest.raises(ValueError, match="ceiling of 4096"):
             fn(*over, tab)
-    wide = chip_smoke.paircrf_inputs(["ACGU"], ["ACGU"], dev, l1max=32,
+    wide = card_checks.paircrf_inputs(["ACGU"], ["ACGU"], dev, l1max=32,
                                      l2max=paircrf_cuda.MAX_COLS)
     with pytest.raises(ValueError, match="padded lengths"):
         paircrf_cuda.forward_backward_posterior(*wide, tab)
-    args = chip_smoke.paircrf_inputs(_rna(rng, (20, 30)), _rna(rng, (25, 9)), dev)
+    args = card_checks.paircrf_inputs(_rna(rng, (20, 30)), _rna(rng, (25, 9)), dev)
     with pytest.raises(ValueError, match="CUDA"):
         paircrf_cuda.forward_backward_posterior(*(a.cpu() for a in args), paircrf.tables("cpu"))
     with pytest.raises(ValueError, match="int32"):
@@ -409,41 +455,15 @@ def test_contrafold_matches_cpu(constrained, dev):
         np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
 
 
-def _quarter_steps(rng, shape):
-    """Scores in quarter steps, half the zeros -0.0: frequent exact ties."""
-    sm = (rng.integers(-4, 5, size=shape) / 4).astype(np.float32)
-    sm[(sm == 0) & (rng.random(shape) < 0.5)] = np.float32(-0.0)
-    return sm
-
-
-def _ragged(rng, B, L, short):
-    lens = rng.integers(L - 40, L + 1, size=B).astype(np.int32)
-    lens[B - short:] = np.arange(short) % 6
-    return lens
-
-
 def _nussinov_stress(dev, rng, B, L, short):
-    return (torch.from_numpy(_quarter_steps(rng, (B, L, L))).to(dev),
-            torch.from_numpy(_ragged(rng, B, L, short)).to(dev))
+    """Quarter-step scores, half the zeros -0.0 (frequent exact ties), and
+    ragged lengths, the last `short` of them 0, 1, 2, ..."""
+    sm = torch.from_numpy(card_checks.quarter_steps(rng, (B, L, L))).to(dev)
+    return sm, torch.from_numpy(card_checks.ragged_lens(rng, B, L, short)).to(dev)
 
 
 def _nw_stress(dev, rng, B, L1, L2, short):
-    th = np.float32(0.25)
-    sm = np.full((B, L1, L2), -th, np.float32)
-    envf = np.zeros((B, L1 + 1), np.int32)
-    envl = np.full((B, L1 + 1), L2, np.int32)
-    l1 = _ragged(rng, B, L1, short)
-    l2 = rng.integers(max(L2 - 40, 0), L2 + 1, size=B).astype(np.int32)
-    for b in range(B):
-        n1, n2 = int(l1[b]), int(l2[b])
-        p = np.abs(_quarter_steps(rng, (n1, n2))) * (rng.random((n1, n2)) < 0.3)
-        s = np.float32(p - th + np.abs(_quarter_steps(rng, (n1, n2))) / 2)
-        s[rng.random((n1, n2)) < 0.05] = np.float32(-0.0)
-        env = nw.envelope(p, th)
-        sm[b, :n1, :n2] = s
-        envf[b, : n1 + 1] = env[:, 0]
-        envl[b, : n1 + 1] = env[:, 1]
-    return [torch.from_numpy(a).to(dev) for a in (sm, envf, envl, l1, l2)]
+    return card_checks.nw_inputs(rng, B, L1, L2, dev, short, ties=True)
 
 
 def _equal(got, want):
@@ -473,11 +493,7 @@ def test_nw_stress_matches_plain(B, L1, L2, short, dev):
 
 
 def _random_pairs(dev, rng, lens1, lens2, l1max, l2max):
-    def seqs(lens):
-        return ["".join(rng.choice(list("ACGU"), size=int(n))) for n in lens]
-    c1, n1 = pairhmm.encode_batch(seqs(lens1), l1max)
-    c2, n2 = pairhmm.encode_batch(seqs(lens2), l2max)
-    return [torch.from_numpy(a).to(dev) for a in (c1, n1, c2, n2)]
+    return card_checks.random_pairs(rng, lens1, lens2, l1max, l2max, dev)
 
 
 def _pairhmm_equal(args, tab):
@@ -503,6 +519,19 @@ def test_pairhmm_stress_matches_plain(case, dev):
         "one pair": lambda: _random_pairs(dev, rng, [77], [91], 96, 96),
     }[case]()
     _pairhmm_equal(args, pairhmm.tables(dev))
+
+
+@pytest.mark.parametrize("family", ["RF00005_0.fa", "RF00017_4.fa"])
+def test_pairhmm_main_path_shapes(family, dev):
+    """A family's all pairs (B 45; L <= 96, L <= 320): the passes, the
+    posterior kernel on their outputs and codes to posteriors bit-equal to
+    the plain versions."""
+    args = card_checks.pairhmm_inputs(card_checks.read_fasta(family), dev)
+    tab = pairhmm.tables(dev)
+    _pairhmm_equal(args, tab)
+    fwd, bwd = pairhmm_cuda.forward(*args, tab), pairhmm_cuda.backward(*args, tab)
+    _equal((pairhmm_cuda.posterior(*fwd, *bwd, args[1], args[3], tab),),
+           (pairhmm.posterior(*fwd, *bwd, args[1], args[3], tab),))
 
 
 def test_pairhmm_fifty_sequence_family(dev):
@@ -578,6 +607,60 @@ def test_long_variants_match_plain(L, dev):
     _equal(nw.decode(*args), nw.decode_plain(*args))
 
 
+# (B, L, short): the main path's padded lengths (RF00005's merges,
+# RF00017's merges and its 383-column final structure), DD layers' batches
+# with ragged lengths down to 0, tables and codes in global memory
+_NUSSINOV_SHAPES = [(8, 96, 0), (8, 352, 0), (8, 384, 0), (2, 320, 1), (4, 320, 2), (10, 320, 5),
+                    (2, 352, 2), (4, 352, 4), (10, 352, 6), (1, 700, 0)]
+# (B, L1, L2, short, ties): square merges, RF00017's last (352 x 320), DD
+# layers' batches, and past K4's shared memory (the long variant)
+_NW_SHAPES = [(4, 96, 96, 0, False), (4, 320, 320, 0, False), (4, 352, 320, 0, False),
+              (1, 320, 320, 0, False), (2, 320, 320, 1, False), (5, 320, 320, 2, False),
+              (1, 352, 320, 0, False), (2, 352, 320, 0, False), (5, 352, 320, 0, False),
+              (2, 800, 992, 0, False), (2, 800, 992, 0, True)]
+
+
+@pytest.mark.parametrize("B,L,short", _NUSSINOV_SHAPES)
+def test_nussinov_main_path_shapes(B, L, short, dev):
+    """K3 on scores shaped like the DD loop's (stems above a negative
+    floor), bit-equal to the plain version."""
+    sm, lens = card_checks.nussinov_inputs(np.random.default_rng(B * 1000 + L), B, L, dev, short)
+    _equal(nussinov.decode(sm, lens), nussinov.decode_plain(sm, lens))
+
+
+@pytest.mark.parametrize("B,L1,L2,short,ties", _NW_SHAPES)
+def test_nw_main_path_shapes(B, L1, L2, short, ties, dev):
+    """K4 on banded problems shaped like the DD loop's (and, with ties,
+    quarter steps and -0.0), bit-equal to the plain version; only 800 x
+    992 goes to the long variant."""
+    args = card_checks.nw_inputs(np.random.default_rng(B * 1000 + L1 + L2), B, L1, L2, dev,
+                                short, ties)
+    assert nw_cuda.is_long(L1, L2) == (L1 == 800)
+    _equal(nw.decode(*args), nw.decode_plain(*args))
+
+
+def test_kernels_at_the_ceiling_are_well_formed(dev):
+    """At the ceiling of 4096 (B 2): the pair-HMM posteriors finite within
+    [-1e-5, 1]; K3's scores finite and its structures nested within the
+    true lengths; K4's scores finite and its alignments increasing within
+    them."""
+    rng = np.random.default_rng(6)
+    C = 4096
+    args = card_checks.random_pairs(rng, [C - 1, C - 300], [C - 1, C - 77], C - 1, C - 1, dev)
+    post = pairhmm.forward_backward_posterior(*args, pairhmm.tables(dev))
+    assert bool(torch.isfinite(post).all())
+    assert float(post.min()) >= -1e-5 and float(post.max()) <= 1.0
+    sm, lens = card_checks.nussinov_inputs(rng, 2, C, dev)
+    score, ss = nussinov_cuda.decode(sm, lens)
+    assert bool(torch.isfinite(score).all())
+    assert all(card_checks.valid_structure(ss[b].cpu().numpy(), int(lens[b])) for b in range(2))
+    args = card_checks.nw_inputs(rng, 2, C, C, dev)
+    score, al = nw_cuda.decode(*args)
+    assert bool(torch.isfinite(score).all())
+    assert all(card_checks.valid_alignment(al[b].cpu().numpy(), int(args[3][b]), int(args[4][b]))
+               for b in range(2))
+
+
 def test_host_dd_matches_cpu(dev):
     """The host-loop DD on the card (K3 and K4 every iteration) equals its
     CPU run (the plain decoders) on random problems, under both structure
@@ -604,11 +687,9 @@ def test_host_dd_matches_cpu(dev):
 
 def test_rf00017_frozen_replay(dev):
     """The RF00017 frozen replay through the host-loop DD with K3 and K4:
-    the tree line, SS_cons and every row equal the frozen output (as
-    chip_smoke.py's solvers phase checks)."""
-    import chip_smoke
-
-    chip_smoke.replay_rf00017(dev)
+    the tree line, SS_cons and every row equal the frozen output; K4
+    launched once an iteration, K3 once more."""
+    card_checks.replay_rf00017(dev)
 
 
 @pytest.mark.parametrize("rule", ["subgradient", "adagrad", "adam"])
@@ -661,7 +742,7 @@ def test_dd_step_kernels_match_plain_step(batch, rule, dev):
     probs, bodies = _dd_batch(batch)
     if batch == "long":
         assert -(-max(p[2].shape[0] for p in probs) // 32) * 32 > nussinov_cuda.MAX_L
-    done = chip_smoke.compare_dd_bodies(probs, dict(KW, device=dev, t_max=600), rule, bodies)
+    done = card_checks.compare_dd_bodies(probs, dict(KW, device=dev, t_max=600), rule, bodies)
     if batch == "problems" and rule == "subgradient":
         assert 0 < done < len(probs)
 
@@ -673,8 +754,8 @@ def card_dd_layers():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
-    return {"RF00005": chip_smoke.dd_layers(chip_smoke.read_fasta("RF00005_0.fa"), dev),
-            "family-50": chip_smoke.dd_layers(chip_smoke.family50(), dev)}
+    return {"RF00005": card_checks.dd_layers(card_checks.read_fasta("RF00005_0.fa"), dev),
+            "family-50": card_checks.dd_layers(card_checks.family50(), dev)}
 
 
 @pytest.mark.parametrize("rule", ["subgradient", "adagrad", "adam"])
@@ -682,33 +763,41 @@ def card_dd_layers():
 def test_dd_kernel_route_matches_plain_route(family, rule, card_dd_layers):
     """`solve_by_dd_batch` through the step kernels equals it through the
     plain step on the card, bit for bit in (s, x, y, z) and the iterations
-    and violations of every merge, on every layer of the family."""
+    and violations of every merge, on every layer of the family; and 40
+    loop bodies through both leave bit-equal states (`compare_dd_bodies`)
+    on RF00005's layers and family-50's first and last."""
     layers = card_dd_layers[family]
     assert len(layers) >= (3 if family == "RF00005" else 6)
     for problems, kw in layers:
-        got, want = chip_smoke.solve_both_routes(problems, kw, rule)
-        assert chip_smoke.dd_solutions_equal(got, want), (family, rule, len(problems))
+        got, want = card_checks.solve_both_routes(problems, kw, rule)
+        assert card_checks.dd_solutions_equal(got, want), (family, rule, len(problems))
+    for problems, kw in layers if family == "RF00005" else (layers[0], layers[-1]):
+        card_checks.compare_dd_bodies(problems, kw, rule, 40)
 
 
 def test_dd_step_counts_its_bodies(dev):
     """On the card every DD loop body goes through the step kernels: the
-    counter step_kernel_bodies equals iterations; through the plain step it
-    is 0."""
+    counter step_kernel_bodies equals iterations, and each step kernel
+    launches once a body; through the plain step both are 0."""
     from dafs_tpu_torch import dd
     from dafs_tpu_torch.utils import spans
     from tests.merge_problems import KW, PROBLEMS, _problem
 
     probs = [(*_problem(*p[:3]), *p[3:]) for p in PROBLEMS]
     for plain in (False, True):
+        before = {n: k.launches for n, k in card_checks.kernels().items()}
         with spans.record() as recs:
             if plain:
-                with chip_smoke.plain_dd_step():
+                with card_checks.plain_dd_step():
                     dd.solve_by_dd_batch(probs, device=dev, t_max=150, **KW)
             else:
                 dd.solve_by_dd_batch(probs, device=dev, t_max=150, **KW)
         (loop,) = [sp for sp in recs if sp.name == "dd.loop"]
         assert loop.counts["iterations"] > 0
-        assert loop.counts["step_kernel_bodies"] == (0 if plain else loop.counts["iterations"])
+        bodies = 0 if plain else loop.counts["iterations"]
+        assert loop.counts["step_kernel_bodies"] == bodies
+        assert {n: card_checks.kernels()[n].launches - before[n]
+                for n in card_checks.DD_STEP} == dict.fromkeys(card_checks.DD_STEP, bodies)
 
 
 def test_dd_step_wrapper_rejects_bad_inputs(dev):
@@ -717,13 +806,14 @@ def test_dd_step_wrapper_rejects_bad_inputs(dev):
     from tests.merge_problems import KW, PROBLEMS, _problem
 
     probs = [(*_problem(*p[:3]), *p[3:]) for p in PROBLEMS[:3]]
-    pr, st = chip_smoke.dd_state(probs, dict(KW, device=dev, t_max=50), "adam")
+    pr, st = card_checks.dd_state(probs, dict(KW, device=dev, t_max=50), "adam")
+    step_kernels = [card_checks.kernels()[n] for n in card_checks.DD_STEP]
     B, P, P1 = st.B, max(st.P1, st.P2), st.P1
     s_xy = torch.zeros(2 * B, device=dev)
     xy = torch.zeros((2 * B, P), dtype=torch.int32, device=dev)
     s_z = torch.zeros(B, device=dev)
     z_new = torch.zeros((B, P1), dtype=torch.int32, device=dev)
-    before = [k.launches for k in chip_smoke.dd_step_kernels().values()]
+    before = [k.launches for k in step_kernels]
     for bad in ((s_xy.double(), xy, s_z, z_new), (s_xy, xy[:, 1:].contiguous(), s_z, z_new),
                 (s_xy, xy, s_z.cpu(), z_new), (s_xy, xy, s_z, z_new.long()),
                 (s_xy, torch.zeros((P, 2 * B), dtype=torch.int32, device=dev).t(), s_z, z_new)):
@@ -739,7 +829,7 @@ def test_dd_step_wrapper_rejects_bad_inputs(dev):
     st.q_x = st.q_x.cpu()
     with pytest.raises(ValueError):
         dd_step_cuda.Step(pr, st)
-    assert before == [k.launches for k in chip_smoke.dd_step_kernels().values()]
+    assert before == [k.launches for k in step_kernels]
 
 
 def test_fourway_matches_cpu(dev):
@@ -765,6 +855,22 @@ def test_fourway_matches_cpu(dev):
     assert float(np.abs(got.astype(np.float64) - want).max()) <= 1e-6
 
 
+def test_fourway_on_rf00005_posteriors_matches_cpu(dev):
+    """Four-way PCT on RF00005's own posteriors (45 pairs, L 96): the card
+    against its CPU run, 1e-6."""
+    from dafs_tpu_torch import consistency
+    from dafs_tpu_torch.models import align_models, fold_models
+    from dafs_tpu_torch.typedefs import CUTOFF
+
+    fa = card_checks.read_fasta("RF00005_0.fa")
+    lens = [len(f) for f in fa]
+    bp = fold_models.by_name("Boltzmann", CUTOFF).all_seqs(fa, dev)
+    mp = align_models.by_name("ProbCons", 0.01).all_pairs(fa, dev)
+    got = consistency.relax_fourway_consistency(mp, bp, lens, 0.5, dev)
+    want = consistency.relax_fourway_consistency(mp, bp, lens, 0.5, "cpu")
+    assert float(np.abs(got.astype(np.float64) - want).max()) <= 1e-6
+
+
 def test_decoders_on_last_card_match_plain(dev):
     """K3 and K4 launch on their tensors' card: on the last visible card
     (not the current one) each is bit-equal to its plain version there.
@@ -782,31 +888,39 @@ def test_decoders_on_last_card_match_plain(dev):
 
 
 def test_sharded_stages_match_unsharded(dev):
-    """All-pairs, fold and both PCTs on a two-shard mesh of this card (and
+    """The fold (its posteriors and the thresholded bp), all-pairs, the
+    similarity, both PCTs and the guide tree of RF00005 and of the
+    50-sequence family of `bench.py` on a two-shard mesh of this card (and
     across the cards where there are several) equal the single-device run
-    bit for bit."""
-    from dafs_tpu_torch import consistency
-    from dafs_tpu_torch.fasta import load_fasta
+    bit for bit; the sharded runs launch the pair-HMM kernels and each fold
+    kernel once a ladder attempt of a bucket shard."""
+    from dafs_tpu_torch import consistency, guide_tree
     from dafs_tpu_torch.models import align_models, fold_models
     from dafs_tpu_torch.parallel import mesh
 
-    fa = load_fasta("tests/data/RF00005_0.fa")
-    lens = [len(f.seq) for f in fa]
-
-    def stages():
-        bp = fold_models.RNAfold(True, 1e-4).all_seqs(fa, dev)
+    def stages(fa):
+        lens = [len(f.seq) for f in fa]
+        fold = fold_models.RNAfold(True, 1e-4)
+        posts = fold.batch_bp_posteriors([f.seq for f in fa], dev, th=0.0)
+        bp = fold.all_seqs(fa, dev, posts)
         mp = align_models.ProbCons(0.01).all_pairs(fa, dev)
         sim = consistency.similarity_matrix(mp, lens, dev)
-        return (bp, mp, consistency.relax_basepairing_probability(bp, mp, sim, lens, 0.25, dev),
-                consistency.relax_matching_probability(mp, sim, lens, 0.25, dev))
+        return [*posts, bp, mp, sim,
+                consistency.relax_basepairing_probability(bp, mp, sim, lens, 0.25, dev),
+                consistency.relax_matching_probability(mp, sim, lens, 0.25, dev),
+                guide_tree.print_tree(guide_tree.build_tree(sim), [f.name for f in fa])]
 
-    with mesh.force_single_device():
-        want = stages()
-    for shards in ({2} | {torch.cuda.device_count()}) - {1}:
-        with mesh.virtual_mesh(shards):
-            got = stages()
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
+    for fa in (card_checks.read_fasta("RF00005_0.fa"), card_checks.family50()):
+        with mesh.force_single_device():
+            want = stages(fa)
+        for shards in ({2} | {torch.cuda.device_count()}) - {1}:
+            with card_checks.Launches() as n, mesh.virtual_mesh(shards):
+                got = stages(fa)
+            n.hold(launched=PAIRHMM)
+            assert got[-1] == want[-1]
+            for g, w in zip(got[:-1], want[:-1]):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8))
 
 
 @pytest.mark.parametrize("family,shards", [
@@ -835,29 +949,44 @@ def test_fold_rows_do_not_depend_on_the_batch(family, shards, dev):
 
 
 def _fold_cases():
-    r5 = [f.seq for f in chip_smoke.read_fasta("RF00005_0.fa")]
-    r17 = [f.seq for f in chip_smoke.read_fasta("RF00017_4.fa")]
-    con_seqs, cons = chip_smoke.refold_constraints("rf00005_default_tpu.txt")
-    rows17 = chip_smoke.read_snapshot("rf00017_default_tpu.txt")[3]
+    r5 = [f.seq for f in card_checks.read_fasta("RF00005_0.fa")]
+    r17 = [f.seq for f in card_checks.read_fasta("RF00017_4.fa")]
+    con_seqs, cons = card_checks.refold_constraints("rf00005_default_tpu.txt")
+    rows17 = card_checks.read_snapshot("rf00017_default_tpu.txt")[3]
     return {
-        "RF00005": dict(seqs=r5), "RF00017": dict(seqs=r17, reps=1), "B 1": dict(seqs=r5[:1]),
+        "RF00005": dict(seqs=r5), "RF00017": dict(seqs=r17), "B 1": dict(seqs=r5[:1]),
         "constrained": dict(seqs=con_seqs, cons=cons), "Vienna": dict(seqs=r5[:4], bl=False),
         "overflowing start": dict(seqs=r5[:3], start="over"),
         "n 1056": dict(seqs=[(r.replace("-", "") * 4)[:1056] for r in rows17[:2]],
-                       start="stable", reps=1),
+                       start="stable"),
+        "family-50": dict(seqs=[f.seq for f in card_checks.family50()]),
     }
 
 
 @pytest.mark.parametrize("case", ["RF00005", "RF00017", "B 1", "constrained", "Vienna",
-                                  "overflowing start", "n 1056"])
+                                  "overflowing start", "n 1056", "family-50"])
 def test_fold_kernels_match_plain(case, dev):
     """The fold kernels against the plain McCaskill on the card, through the
-    pf-scale ladder (`chip_smoke.fold_case`): the same attempts and readings,
-    pout within rtol 2e-4 / atol 1e-6 and Q within rtol 2e-4, each kernel
-    against the plain step, one launch a kernel an attempt, two runs
-    bit-equal."""
-    rows = chip_smoke.fold_case(case, dev, **_fold_cases()[case])
-    assert set(rows) == set(chip_smoke.FOLD)
+    pf-scale ladder (`card_checks.fold_case`): the same attempts and
+    readings, pout within rtol 2e-4 / atol 1e-6 and Q within rtol 2e-4,
+    each kernel against the plain step, one launch a kernel an attempt, two
+    runs bit-equal."""
+    card_checks.fold_case(dev, **_fold_cases()[case])
+
+
+def test_fold_at_n_2048_is_well_formed(dev):
+    """Two of RF00017's sequences tiled to n 2048, from scales with Q near
+    1, through the kernels: Q and the posteriors finite, pout in [0, 1 +
+    2e-4], the attempt bit-equal across two runs."""
+    rows17 = card_checks.read_snapshot("rf00017_default_tpu.txt")[3]
+    seqs = [(r.replace("-", "") * 8)[:2048] for r in rows17[:2]]
+    last = card_checks.traced_fold(seqs, dev, True, None, card_checks.fold_stable_scale(seqs, dev),
+                                  plain=False)[2]
+    pout, Q = last["pout"], last["Q"]
+    assert bool(torch.isfinite(Q).all()) and bool(torch.isfinite(pout).all())
+    assert float(pout.min()) >= 0.0 and float(pout.max()) <= 1.0 + 2e-4
+    first = [x.clone() for x in mccaskill_cuda.mccaskill(last["prep"], last["sc"])]
+    _equal(mccaskill_cuda.mccaskill(last["prep"], last["sc"]), first)
 
 
 def test_fold_wrapper_rejects_bad_inputs(dev):
@@ -888,3 +1017,11 @@ def test_fold_wrapper_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="prepare"):
         mccaskill.fold_attempt(tuple(t(a, dev) for a in (S, PT, AP, AU, ns)), pk["tensors"]["sc"],
                                mccaskill.kmer_codes(t(S, dev)), None)
+
+
+@pytest.mark.parametrize("run", RUNS, ids=[r.id for r in RUNS])
+def test_run_on_the_card(run, dev, tmp_path):
+    """One end-to-end run of `RUNS` on the card: its output well formed
+    (rows, SS_cons), equal to its references, and its kernels launched as
+    the row and `card_checks.Launches.hold` say."""
+    card_checks.hold_run(run, dev, tmp_path)

@@ -25,8 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from dafs_tpu_torch.ops import cuda_lib, logspace, paircrf, paircrf_cuda
+from tests import card_checks
 
 torch.set_num_threads(1)
 
@@ -92,7 +92,7 @@ def _rna(rng, lens, alphabet="ACGU"):
 
 
 def _inputs(seqs1, seqs2, l1max=None, l2max=None):
-    return chip_smoke.paircrf_inputs(seqs1, seqs2, "cpu", l1max, l2max)
+    return card_checks.paircrf_inputs(seqs1, seqs2, "cpu", l1max, l2max)
 
 
 def test_cpu_takes_the_plain_version_and_launches_nothing():
