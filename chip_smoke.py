@@ -14,10 +14,13 @@ posterior kernel on RF00005's and RF00017's all pairs, K3, K4), `length`
 (the long variants, the ceiling of 4096), `consensus` (the final calls of
 RF00005's, RF00017's and family-50's default runs), `fold` (the settled
 ladder attempt of each case of `fold_times`), `dd_step` (RF00005's layers,
-family-50's first and last) and `paircrf` (B 45 and 105, L 96).  Each
+family-50's first and last), `paircrf` (B 45 and 105, L 96) and
+`contrafold` (one bucket replayed as a CUDA graph beside the eager run, at
+RF00005's (10, 96) and contra-trna's 15 sequences).  Each
 kernel's outputs where it is timed are held to its plain version's, and
 the largest difference goes into its row as `max_abs_err`: bit-equal for
-K1-K4, the long variants, the pair-CRF and the DD step, within rtol 2e-4
+K1-K4, the long variants, the pair-CRF, the DD step and the CONTRAfold
+graph, within rtol 2e-4
 and `card_checks.agree`'s atol for the fold and the consensus.  `runs`
 runs every row of `card_checks.RUNS` (the table the `cuda` tests run),
 each held to its row, and reads each kernel's launches from it:
@@ -948,6 +951,75 @@ def paircrf_times(dev):
     return by_case(cases, cases[-1][0])
 
 
+# CONTRAfold's inside-outside (ops/contrafold.py), plain PyTorch replayed as
+# one CUDA graph a bucket.  Work within the true lengths: each cell (i, j)
+# of span d sums its single-branch loops, (m + 1)(m + 2) / 2 of them with
+# m = min(30, d - 2), in the inside and again in the outside, each a score
+# add and a log-add; its multiloop split, d - 1 terms, once inside and twice
+# in the outside's adjoints; F5 and its outside j terms at j.
+
+
+def contrafold_bound(lens, L):
+    ops = 0.0
+    for n in lens:
+        for d in range(1, n):
+            m = min(30, d - 2)
+            single = (m + 1) * (m + 2) // 2 if m >= 0 else 0
+            ops += (n - d) * (2 * single * (LOG_ADD_OPS + 1) + 3 * (d - 1) * (LOG_ADD_OPS + 1))
+        ops += 2 * (n * (n + 1) // 2) * (LOG_ADD_OPS + 3)
+    A = L + 2
+    return bound(ops, len(lens) * (4 * A + A * A + A + 8 + 4 * A * A))
+
+
+def contrafold_times(dev):
+    """One CONTRAfold bucket at RF00005's (10, 96) and at contra-trna's
+    largest, its 15-sequence family (L 96): the graph's replay (CUDA
+    events), the bucket through `batch_bp_posteriors` (host clock: the
+    uploads, the replay and the read-back) and the eager `inside_outside`
+    on the unpadded batch, the plain version, whose posteriors the
+    replay's must equal (`held`).  Each row at the last shape, both under
+    "by_case"."""
+    import torch
+
+    from dafs_tpu_torch.ops import contrafold
+    from portbench import traffic
+
+    pool = traffic.Families(traffic.load_mix("trna11"), 0).pool
+    (fam,) = [[s for _, s in f] for f in pool if len(f) == 15]
+    card = torch.device("cuda", torch.cuda.current_device())
+    tab = contrafold.tables(card)
+    cases = []
+    for label, seqs in (("RF00005", [f.seq for f in read_fasta("RF00005_0.fa")]),
+                        ("contra-trna 15", fam)):
+        B, L = len(seqs), -(-max(map(len, seqs)) // 32) * 32
+        t = time.perf_counter()
+        contrafold.batch_bp_posteriors(seqs, 0.0, card)
+        first_s = time.perf_counter() - t
+        rows = contrafold._graph_rows(B, L)
+        graph = contrafold._GRAPHS[card, rows, L]
+        arrays = contrafold._bucket_arrays(seqs, [None] * B, L, B)
+        eager = []
+        plain_ms = cuda_ms(lambda: contrafold.inside_outside(
+            *(torch.from_numpy(a).to(card) for a in arrays), tab), 2, eager)
+        ms = cuda_ms(graph.graph.replay, 20)
+        host = []
+        for _ in range(10):
+            t = time.perf_counter()
+            contrafold.batch_bp_posteriors(seqs, 0.0, card)
+            host.append(1e3 * (time.perf_counter() - t))
+        err = held(f"contrafold {label} B={B}", graph.post[:B], eager[0])
+        path_ms = float(np.median(host))
+        print(f"contrafold {label} (B, Bp, L) = ({B}, {rows}, {L}): first call (capture and "
+              f"replay) {first_s:.3f} s; replay {ms:.3f} ms on the card; a bucket "
+              f"{path_ms:.3f} ms (uploads, replay, read-back); eager {plain_ms:.1f} ms", flush=True)
+        cases.append((label, {"contrafold_graph": row(
+            "contrafold_graph", "dafs_tpu_torch/ops/contrafold.py (a CUDA graph a bucket)",
+            "none: XLA of dafs_tpu/ops/contrafold.py", f"B={B}, Bp={rows}, L={L}", ms, plain_ms,
+            contrafold_bound([len(s) for s in seqs], L), path_ms=path_ms,
+            capture_s=first_s, launched_by="contrafold.batch_bp_posteriors", max_abs_err=err)}))
+    return by_case(cases, cases[-1][0])
+
+
 def run_launches(dev):
     """Every row of `card_checks.RUNS` on the card, each held to its row
     (`card_checks.hold_run`); prints each run's seconds and the kernels it
@@ -970,7 +1042,7 @@ def run_launches(dev):
 
 GROUPS = {"kernels": kernel_times, "length": length_times, "consensus": consensus_times,
           "fold": fold_times, "dd_step": dd_step_times, "paircrf": paircrf_times,
-          "runs": run_launches}
+          "contrafold": contrafold_times, "runs": run_launches}
 
 
 def main() -> int:
@@ -999,6 +1071,8 @@ def main() -> int:
         seconds[group] = round(time.perf_counter() - t, 1)
         print(f"group {group}: {seconds[group]}s", flush=True)
     for name, r in rows.items() if by_run else ():
+        if name not in by_run["default RF00005"]:  # no kernel of the library
+            continue
         r["launches"] = by_run["default RF00005"][name] + by_run["default RF00017"][name]
         r["launches_by_path"] = {run: counts[name] for run, counts in by_run.items()}
     print(f"group seconds: {seconds}")

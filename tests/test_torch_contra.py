@@ -237,6 +237,29 @@ def test_contrafold_matches_jax(kind, jax_ref):
     assert max(float(w.max()) for w in want) > 0.5
 
 
+@pytest.mark.parametrize("B", [3, 5, 9, 17])
+def test_contrafold_padded_rows_give_the_unpadded_posteriors(B):
+    """The bookkeeping of a card's bucket, on the CPU: a bucket of B
+    sequences (L 32, every other one constrained) on `_graph_rows(B, 32)`
+    rows, the rows past B copies of the first sequence's codes, masks and
+    length; its first B rows' posteriors equal those of the unpadded
+    batch, the eager run's."""
+    rng = np.random.default_rng(B)
+    seqs = [_rna(rng, n) for n in rng.integers(12, 33, size=B)]
+    cons = [_constraint(s, rng) if k % 2 else None for k, s in enumerate(seqs)]
+    rows = t_cf._graph_rows(B, 32)
+    assert rows >= B
+    base = t_cf._bucket_arrays(seqs, cons, 32, B)
+    padded = t_cf._bucket_arrays(seqs, cons, 32, rows)
+    for a, p in zip(base, padded):
+        assert p.shape == (rows,) + a.shape[1:] and p.dtype == a.dtype
+        assert np.array_equal(p[:B], a) and all(np.array_equal(r, a[0]) for r in p[B:])
+    tab = t_cf.tables("cpu")
+    want = t_cf.inside_outside(*map(torch.from_numpy, base), tab)
+    got = t_cf.inside_outside(*map(torch.from_numpy, padded), tab)
+    assert torch.equal(got[:B], want)
+
+
 def test_constraints_bite():
     free = t_cf.batch_bp_posteriors(CF_SEQS, 0.0, "cpu")
     con = t_cf.batch_bp_posteriors(CF_SEQS, 0.0, "cpu", constraints=CF_CONS)

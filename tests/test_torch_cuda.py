@@ -25,6 +25,7 @@ from dafs_tpu_torch.ops import (
     nussinov, nussinov_cuda, nw, nw_cuda, paircrf, paircrf_cuda, pairhmm, pairhmm_cuda,
 )
 from dafs_tpu_torch.ops import alifold_kernel as ak
+from dafs_tpu_torch.utils import spans
 from tests import card_checks
 from tests.card_checks import PAIRHMM, RUNS
 
@@ -453,6 +454,69 @@ def test_contrafold_matches_cpu(constrained, dev):
     want = contrafold.batch_bp_posteriors(seqs, 0.0, "cpu", constraints=cons)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
+
+
+def _contrafold_replay(seqs, cons, dev):
+    """One bucket through `contrafold.batch_bp_posteriors` on the card:
+    (its graph's posteriors cut to the bucket's B rows, the eager
+    `inside_outside` on the unpadded batch, the bucket's span)."""
+    B, L = len(seqs), -(-max(map(len, seqs)) // 32) * 32
+    card = torch.device("cuda", torch.cuda.current_device())
+    with spans.record() as recs:
+        contrafold.batch_bp_posteriors(seqs, 0.0, dev, constraints=cons)
+    (sp,) = [r for r in recs if r.name == "contrafold.batch"]
+    got = contrafold._GRAPHS[card, sp.attrs["Bp"], L].post[:B]
+    arrays = contrafold._bucket_arrays(seqs, cons or [None] * B, L, B)
+    want = contrafold.inside_outside(*(torch.from_numpy(a).to(dev) for a in arrays),
+                                     contrafold.tables(dev))
+    torch.cuda.synchronize()
+    return got, want, sp
+
+
+@pytest.mark.parametrize("L", [32, 96, 128, 320])
+@pytest.mark.parametrize("B", [1, 5, 15, 16, 17, 50])
+def test_contrafold_graph_matches_eager(B, L, dev):
+    """A bucket of B sequences (lengths across the bucket, its longest L)
+    replays the graph of (`_graph_rows(B, L)`, L): its posteriors equal the
+    eager `inside_outside` on the unpadded batch bit for bit, the same
+    kernels as the plain run (and the check's frozen copy) launches."""
+    rng = np.random.default_rng(1000 * B + L)
+    seqs = _rna(rng, [L] + list(rng.integers(max(L - 31, 1), L + 1, size=B - 1)))
+    got, want, sp = _contrafold_replay(seqs, None, dev)
+    assert sp.attrs["B"] == B and sp.attrs["Bp"] == contrafold._graph_rows(B, L)
+    assert sp.counts["graph_replays"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["RF00005 constrained", "ragged", "B 5 at L 544",
+                                  "B 9 at L 544"])
+def test_contrafold_graph_matches_eager_cases(case, dev):
+    """RF00005 under path (b)'s constraints from its SS_cons, one ragged
+    bucket of L 96 (lengths 65 to 96), and buckets of L 544, whose rows are
+    padded within their power-of-two class (7, 15): the replay equals the
+    eager run bit for bit."""
+    rng = np.random.default_rng(7)
+    if case == "ragged":
+        seqs, cons = _rna(rng, (65, 66, 71, 80, 88, 95, 96)), None
+    elif case.endswith("544"):
+        B = int(case.split()[1])
+        seqs, cons = _rna(rng, [544] + list(rng.integers(513, 545, size=B - 1))), None
+    else:
+        seqs, cons = card_checks.refold_constraints("rf00005_default_tpu.txt")
+    got, want, _ = _contrafold_replay(seqs, cons, dev)
+    assert torch.equal(got, want)
+
+
+def test_contrafold_graph_captured_once_a_shape(dev):
+    """The first bucket of a shape captures its graph, the next replays it
+    and captures nothing; both give the eager run's posteriors."""
+    seqs = _rna(np.random.default_rng(11), (40, 50, 61))
+    card = torch.device("cuda", torch.cuda.current_device())
+    contrafold._GRAPHS.pop((card, contrafold._graph_rows(3, 64), 64), None)
+    for captures in (1, 0):
+        got, want, sp = _contrafold_replay(seqs, None, dev)
+        assert (sp.counts["graph_captures"], sp.counts["graph_replays"]) == (captures, 1)
+        assert torch.equal(got, want)
 
 
 def _nussinov_stress(dev, rng, B, L, short):

@@ -240,11 +240,17 @@ def _bucket(n):
     return -(-n // 32) * 32
 
 
+# counters of work that only a card does: pair-CRF batches through the
+# kernels, CONTRAfold buckets captured and replayed as CUDA graphs
+CARD_COUNTS = ("kernel_batches", "graph_captures", "graph_replays")
+
+
 def test_contra_spans_nest_under_their_phase():
     """Each CONTRAfold bucket is a `contrafold.batch` under the phase
     "fold", the pair-CRF's one batch a `paircrf.batch` under "align", each
-    with its read-back under it and non-zero counters, but for
-    `kernel_batches`, 0 on the CPU."""
+    with its read-back under it and non-zero counters, but for the card's
+    (`kernel_batches`, `graph_captures`, `graph_replays`), 0 on the CPU,
+    where a bucket runs on its own B rows (`Bp`)."""
     res, recs = _contra_run(True)
     folds = [sp for sp in recs if sp.name == "contrafold.batch"]
     crfs = [sp for sp in recs if sp.name == "paircrf.batch"]
@@ -257,8 +263,9 @@ def test_contra_spans_nest_under_their_phase():
         kids = [k for k in recs if k.parent == sp.id]
         assert [k.name for k in kids] == [readback]
         assert sp.t0 <= kids[0].t0 <= kids[0].t1 <= sp.t1
-        assert sp.counts and all(v > 0 for k, v in sp.counts.items() if k != "kernel_batches")
-    assert crfs[0].counts["kernel_batches"] == 0
+        assert sp.counts and all(v > 0 for k, v in sp.counts.items() if k not in CARD_COUNTS)
+        assert all(sp.counts[k] == 0 for k in CARD_COUNTS if k in sp.counts)
+    assert all(sp.attrs["Bp"] == sp.attrs["B"] for sp in folds)
     # the consensus of a one-sequence group folds again (Vienna's McCaskill)
     assert {c["route"] for c in res["consensus_calls"]} >= {"mccaskill"}
 
@@ -298,22 +305,27 @@ def test_paircrf_counts_no_kernel_batch_on_the_cpu():
         (len(a) + 1) * (len(b) + 1) for a, b in pairs)
 
 
-@pytest.mark.parametrize("constrained", [False, True], ids=["free", "constrained"])
-def test_contrafold_counts_steps_and_cells(constrained):
+@pytest.mark.parametrize("case", ["free", "constrained", "repeated"])
+def test_contrafold_counts_steps_and_cells(case):
     """One `contrafold.batch` a bucket: `steps` the inside, F5, F5-outside
     and outside loops' steps, 4 L; `cells` the triangle 1 <= i <= j <= n of
-    each true length n, n (n + 1) / 2 a sequence."""
+    each true length n, n (n + 1) / 2 a sequence.  On the CPU a bucket runs
+    eagerly on its own rows (`Bp` = `B`): no graph is captured or replayed,
+    also when the same buckets come again ("repeated")."""
     seqs = [s for _, s in CONTRA_FAMILY]
-    cons = ["?" * len(s) for s in seqs] if constrained else None
+    cons = ["?" * len(s) for s in seqs] if case == "constrained" else None
+    calls = 2 if case == "repeated" else 1
     with spans.record() as recs:
-        contrafold.batch_bp_posteriors(seqs, 0.0, "cpu", constraints=cons)
-    got = {sp.attrs["L"]: (sp.attrs["B"], sp.counts)
-           for sp in recs if sp.name == "contrafold.batch"}
+        for _ in range(calls):
+            contrafold.batch_bp_posteriors(seqs, 0.0, "cpu", constraints=cons)
+    got = [(sp.attrs, sp.counts) for sp in recs if sp.name == "contrafold.batch"]
     want = {}
     for s in seqs:
         B, c = want.get(_bucket(len(s)), (0, 0))
         want[_bucket(len(s))] = (B + 1, c + len(s) * (len(s) + 1) // 2)
-    assert got == {L: (B, {"steps": 4 * L, "cells": c}) for L, (B, c) in want.items()}
+    assert got == calls * [({"B": B, "Bp": B, "L": L},
+                            {"steps": 4 * L, "cells": c, "graph_captures": 0, "graph_replays": 0})
+                           for L, (B, c) in want.items()]
 
 
 def test_contra_spans_off_record_nothing(monkeypatch):
@@ -333,7 +345,18 @@ def test_contra_spans_off_record_nothing(monkeypatch):
     assert entered == [] and not spans.recording()
 
 
-def test_contra_recording_leaves_results_bit_equal():
+@pytest.mark.parametrize("case", ["family", "buckets", "constrained buckets"])
+def test_contra_recording_leaves_results_bit_equal(case):
+    """Recording on or off: the same family result, or the same CONTRAfold
+    posteriors of CONTRA_FAMILY's two buckets (free or constrained)."""
+    if case != "family":
+        seqs = [s for _, s in CONTRA_FAMILY]
+        cons = ["(" + "?" * (len(s) - 2) + ")" for s in seqs] if case.startswith("con") else None
+        off = contrafold.batch_bp_posteriors(seqs, 0.0, "cpu", constraints=cons)
+        with spans.record():
+            on = contrafold.batch_bp_posteriors(seqs, 0.0, "cpu", constraints=cons)
+        assert all(np.array_equal(a, b) for a, b in zip(on, off)) and len(on) == len(seqs)
+        return
     off, _ = _contra_run(False)
     on, _ = _contra_run(True)
     assert on["ss_cons"] == off["ss_cons"] and on["rows"] == off["rows"]

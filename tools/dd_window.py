@@ -16,7 +16,11 @@ runner handed its spans to a reader (`--trace 1`):
   `contrafold.batch` spans: how many, their seconds and their counters
   summed (`paircrf.batch`'s `kernel_batches` beside `diagonals` and
   `cells`: on the card every batch runs the pair-CRF kernels, so it equals
-  the span count), and the values of the readers `crf_kernels_per_diag` and
+  the span count; `contrafold.batch`'s `graph_captures` and
+  `graph_replays` beside `steps` and `cells`: on the card every bucket is
+  a replay, so `graph_replays` equals the span count and
+  `graph_replays - graph_captures` counts the buckets whose graph was
+  already there), and the values of the readers `crf_kernels_per_diag` and
   `crf_busy_pct` (`portbench/metrics/`), which `BENCHMARK.json` does not
   list yet (None where the window ran no pair-CRF or has no device trace).
 """
@@ -76,7 +80,8 @@ def main(argv=None) -> int:
         recs = window_spans(run)
         contra = dict(paircrf=span_sums(recs, "paircrf.batch",
                                         ("diagonals", "cells", "kernel_batches")),
-                      contrafold=span_sums(recs, "contrafold.batch", ("steps", "cells")))
+                      contrafold=span_sums(recs, "contrafold.batch",
+                                           ("steps", "cells", "graph_captures", "graph_replays")))
         for name in ("crf_kernels_per_diag", "crf_busy_pct"):
             contra[name] = harness.load_reader(name)(run)
         print("contra_counters: " + json.dumps(contra), file=sys.stderr)
