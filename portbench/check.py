@@ -21,7 +21,11 @@ cell's checks file:
   cut as above.
 - `ss_bad`: 1 where `SS_cons` is not the reference decode's structure of
   the program's own final input (K3 decodes as the plain Nussinov does,
-  ties included).
+  ties included), and under bp-update 1 more for each structure that a
+  sampled merge's side (`use_bp_update`; at `th_s[0]`) or the final input
+  (`use_bp_update1`; at `th_s1[0]`) was updated under and that is not the
+  reference decode of the program's own input to that update, or that the
+  program made no update for.
 - `tree_bad`: 1 where the guide tree differs from the one the reference
   builds from the program's similarity matrix.
 - `rows_bad`: rows that are not their input sequence with gaps, and sampled
@@ -36,6 +40,17 @@ cell's checks file:
 The merges follow the program's own state: their child alignments are
 read from the rows and its guide tree, their DD inputs from the program
 (`merge_in_err` checks those inputs on their own).
+
+Under bp-update (`Dafs._update_bp`, which the window's capture keeps: its
+input, the structure it ran under, the group of rows and its output) the
+updates are matched to the merges' sides and the final input by their group
+(seq ids and gap masks).  Each update's input, the average before it, goes
+into `merge_in_err` (`final_in_err` for the final) against the reference's
+average; the updated input (the DD's p_x or p_y, or the final decode's
+input) against the reference's update (`Reference.update_bp`) made under
+the program's own structure, since a near-tie in the decode can flip on
+rounding and move the re-folded posteriors by O(1); the structure itself is
+held exactly by `ss_bad`.
 """
 
 from __future__ import annotations
@@ -64,6 +79,30 @@ def cut_err(a: np.ndarray, b: np.ndarray, th: float = CUTOFF) -> float:
     one = (a != 0) ^ (b != 0)
     err = np.abs(a - b)[both].max(initial=0.0)
     return float(max(err, (np.abs(a + b)[one] - th).max(initial=0.0)))
+
+
+def _group(aln) -> tuple:
+    """A group of rows as a bp-update saw it: its seq ids and gap masks."""
+    return tuple((int(r.seq_id), np.asarray(r.mask, bool).tobytes()) for r in aln)
+
+
+def _updates(cap: dict) -> dict:
+    """The program's bp-updates of a family by their group."""
+    return {_group(u["aln"]): u for u in cap.get("updates", [])}
+
+
+def _under(u):
+    """The structure a captured update ran under, None where none was made."""
+    return None if u is None else (u["ss"], u["sstr"])
+
+
+def _structure_bad(ref: F.Reference, u, th: float) -> int:
+    """1 where the program made no update (`u` None) or where the structure
+    it ran under is not the reference decode of its own input at `th`."""
+    if u is None:
+        return 1
+    ss = ref.decode(u["p"], th)
+    return int(not (np.array_equal(ss, u["ss"]) and F.brackets(ss) == u["sstr"]))
 
 
 def _sample_merges(layers, k, rng) -> set[int]:
@@ -100,8 +139,8 @@ def _replay_layers(caps, budget) -> list[tuple[int, int | None]]:
 def check_family(ref: F.Reference, cap: dict) -> dict:
     """The numbers of one family: `cap` holds what the window's run of it
     produced (records, bp, mp, similarity, tree, rows, ss_cons, the DD
-    layers as (problems, solutions, stats), the final decode's input) and
-    what `plan` chose of it."""
+    layers as (problems, solutions, stats), the final decode's input, the
+    bp-updates) and what `plan` chose of it."""
     seqs = [s for _, s in cap["records"]]
     recs = [F.Record(n, s) for n, s in cap["records"]]
     n = len(seqs)
@@ -118,8 +157,10 @@ def check_family(ref: F.Reference, cap: dict) -> dict:
     rows_bad += sum(len(r) != len(rows[0]) for r in rows) + abs(len(rows) - n)
     layers = F.layers(tree, n)
     caps = cap["layers"]
-    merge_in_err, dd_bad = 0.0, 0
-    cap["compared"] = dict(merges=0, replayed=0)
+    merge_in_err, dd_bad, ss_bad = 0.0, 0, 0
+    updates = _updates(cap)
+    update, update1 = ref.o.get("use_bp_update", False), ref.o.get("use_bp_update1", False)
+    cap["compared"] = dict(merges=0, replayed=0, updates=0)
     if rows_bad or [len(x) for x in layers] != [len(p) for p, _, _ in caps]:
         # the rows or the schedule do not say which inputs belong to which
         # merge: nothing below can be compared
@@ -133,8 +174,16 @@ def check_family(ref: F.Reference, cap: dict) -> dict:
             l, r = tree[m][1]
             aln1 = F.sub_alignment(rows, F.leaves_under(tree, l))
             aln2 = F.sub_alignment(rows, F.leaves_under(tree, r))
-            want = ref.merge_inputs(post["bp"], post["mp"], recs, aln1, aln2)
+            sides = [updates.get(_group(a)) for a in (aln1, aln2)]
+            want, avgs = ref.merge_inputs(post["bp"], post["mp"], recs, aln1, aln2,
+                                          under=[_under(u) for u in sides])
             merge_in_err = max(merge_in_err, *(cut_err(g, w) for g, w in zip(prob[:3], want)))
+            if update:
+                for u, avg in zip(sides, avgs):
+                    ss_bad += _structure_bad(ref, u, ref.o["th_s"][0])
+                    if u is not None:
+                        merge_in_err = max(merge_in_err, cut_err(u["p"], avg))
+                        cap["compared"]["updates"] += 1
             cap["compared"]["merges"] += 1
             got = projection.project_alignment(aln1, aln2, np.asarray(sol[3]))
             shown = F.sub_alignment(rows, F.leaves_under(tree, m))
@@ -155,11 +204,19 @@ def check_family(ref: F.Reference, cap: dict) -> dict:
             cap["compared"]["replayed"] += 1
     clock.append(time.perf_counter())
     # the final alignment's rows in the program's order: the root's leaves
-    p = ref.final_p(post["bp"], recs, F.sub_alignment(rows, F.leaves_under(tree, len(tree) - 1)))
+    aln = F.sub_alignment(rows, F.leaves_under(tree, len(tree) - 1))
+    u = updates.get(_group(aln))
+    p, avg = ref.final_p(post["bp"], recs, aln, under=_under(u))
     th = ref.o["th_s1"][0]
+    final_in_err = cut_err(cap["final_p"], p)
+    if update1:
+        ss_bad += _structure_bad(ref, u, th)
+        if u is not None:
+            final_in_err = max(final_in_err, cut_err(u["p"], avg))
+            cap["compared"]["updates"] += 1
+    ss_bad += int(F.brackets(ref.decode(cap["final_p"], th)) != cap["ss_cons"])
     out.update(rows_bad=rows_bad, merge_in_err=merge_in_err, dd_bad=dd_bad,
-               final_in_err=cut_err(cap["final_p"], p),
-               ss_bad=int(F.brackets(ref.decode(cap["final_p"], th)) != cap["ss_cons"]))
+               final_in_err=final_in_err, ss_bad=ss_bad)
     clock.append(time.perf_counter())
     cap["compared"]["seconds"] = dict(zip(("posteriors", "merges", "dd", "final"),
                                           np.diff(clock).round(2).tolist()))
@@ -178,26 +235,32 @@ def control_numbers(ref: F.Reference, ctrl: F.Reference, cap: dict) -> dict:
     """The control's readings: the reference computed with TF32 on (`ctrl`)
     put in the program's place at the family and the sampled merges of
     `cap`, judged as the program is.  It decodes nothing of its own: the
-    merges' child alignments and the final alignment are the program's.
-    The exact comparisons (the tree, the rows, the DD, the structure of a
-    given input) take no precision and are not read."""
+    merges' child alignments and the final alignment are the program's, and
+    so are the structures its bp-updates ran under (both sides update under
+    them; the averages before the updates count too).  The exact
+    comparisons (the tree, the rows, the DD, the structure of a given
+    input) take no precision and are not read."""
     seqs = [s for _, s in cap["records"]]
     recs = [F.Record(n, s) for n, s in cap["records"]]
     want, got = ref.posteriors(seqs), ctrl.posteriors(seqs)
     out = dict(bp_err=cut_err(got["bp"], want["bp"]), mp_err=cut_err(got["mp"], want["mp"]),
                sim_err=float(np.abs(got["sim"].astype(np.float64) - want["sim"]).max()))
     tree, rows = cap["tree"], cap["rows"]
+    updates = _updates(cap)
     err = 0.0
     for m in sorted(cap["sampled_merges"]):
         l, r = tree[m][1]
         aln1 = F.sub_alignment(rows, F.leaves_under(tree, l))
         aln2 = F.sub_alignment(rows, F.leaves_under(tree, r))
-        w = ref.merge_inputs(want["bp"], want["mp"], recs, aln1, aln2)
-        g = ctrl.merge_inputs(got["bp"], got["mp"], recs, aln1, aln2)
-        err = max(err, *(cut_err(a, b) for a, b in zip(g, w)))
+        under = [_under(updates.get(_group(a))) for a in (aln1, aln2)]
+        w, wa = ref.merge_inputs(want["bp"], want["mp"], recs, aln1, aln2, under=under)
+        g, ga = ctrl.merge_inputs(got["bp"], got["mp"], recs, aln1, aln2, under=under)
+        err = max(err, *(cut_err(a, b) for a, b in zip((*g, *ga), (*w, *wa))))
     aln = F.sub_alignment(rows, F.leaves_under(tree, len(tree) - 1))
-    out.update(merge_in_err=err, final_in_err=cut_err(ctrl.final_p(got["bp"], recs, aln),
-                                                      ref.final_p(want["bp"], recs, aln)))
+    under = _under(updates.get(_group(aln)))
+    g, ga = ctrl.final_p(got["bp"], recs, aln, under=under)
+    w, wa = ref.final_p(want["bp"], recs, aln, under=under)
+    out.update(merge_in_err=err, final_in_err=max(cut_err(g, w), cut_err(ga, wa)))
     return out
 
 

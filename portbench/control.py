@@ -51,11 +51,11 @@ def readings(cell, seeds, control_seeds, device, out=sys.stdout):
                 t0 = time.perf_counter()
                 d, _ = harness._family_run(config, records, device)
                 harness._sync(device)
-                layers, _, final = capture.take()
+                layers, _, final, updates = capture.take()
                 res = d.result
                 caps.append(dict(records=records, bp=d.bp, mp=d.mp, sim=res["similarity"],
                                  tree=d.tree, rows=res["rows"], ss_cons=res["ss_cons"],
-                                 layers=layers, final_p=final[0],
+                                 layers=layers, final_p=final[0], updates=updates,
                                  wall=time.perf_counter() - t0))
                 del d, res
         finally:

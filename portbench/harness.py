@@ -20,9 +20,15 @@ the first family that ends after `seconds` (its metrics have no bound,
 and reading the profile of a whole pass would take minutes).
 With `trace`, the window runs under a CUDA-only profile and the decode
 layer's entries are wrapped (`trace.DecodeTimer`); without it nothing but
-the DD entry and the structure decode are wrapped, to keep the merges'
-inputs and results and the final decode's input for the check (references
+the DD entry, the structure decode and the bp-update are wrapped, to keep
+the merges' inputs and results, the final decode's input and each
+bp-update's input, structure, group and output for the check (references
 kept, no copy).
+
+A configuration whose path the check cannot follow stops when its cell is
+loaded, before set-up (`unfollowed`): a decoder other than Nussinov, the
+host solvers, refinement, four-way PCT, and bp-update under a fold model
+whose reference has no constrained re-fold.
 """
 
 from __future__ import annotations
@@ -101,6 +107,34 @@ def load_reader(name: str, root: str = HERE):
     return mod.read
 
 
+def unfollowed(config: dict, root: str = HERE) -> list[str]:
+    """The options of `config` whose path the check's reference does not
+    follow, each with the reason; empty where it follows them all."""
+    from portbench.reference import family
+
+    o = config["options"]
+    out = []
+    if o.get("fold_decoder", "Nussinov") != "Nussinov":
+        out.append(f"fold_decoder {o['fold_decoder']!r} (the reference decodes with Nussinov "
+                   "only)")
+    if o.get("n_refinement", 0) > 0:
+        out.append(f"n_refinement {o['n_refinement']} (the reference does not refine)")
+    if o.get("w_pct_f", 0.0) != 0:
+        out.append(f"w_pct_f {o['w_pct_f']} (the reference has no four-way PCT)")
+    if o.get("dd_host", False):
+        out.append("dd_host (the capture wraps the device DD only)")
+    if o.get("verbose", 0) >= 2:
+        out.append(f"verbose {o['verbose']} (the host DD; the capture wraps the device DD only)")
+    if o.get("t_max", 600) == 0:
+        out.append("t_max 0 (the ILP; the capture wraps the device DD only)")
+    update = [k for k in ("use_bp_update", "use_bp_update1") if o.get(k, False)]
+    fold = config["fold_model"]
+    if update and not hasattr(family.load_model("fold", fold, root), "constrained_posteriors"):
+        out.append(f"{' and '.join(update)} under the fold model {fold!r}, whose reference "
+                   f"{family.model_file('fold', fold, root)} has no constrained_posteriors")
+    return out
+
+
 class Cell:
     """A workload of `BENCHMARK.json` with its files."""
 
@@ -123,6 +157,10 @@ class Cell:
                 raise SystemExit(f"configuration {conf['name']!r} names the {kind} model "
                                  f"{self.config[f'{kind}_model']!r}, which has no reference: "
                                  f"{path} is missing")
+        refused = unfollowed(self.config, root)
+        if refused:
+            raise SystemExit(f"configuration {conf['name']!r}: the check cannot follow "
+                             + "; ".join(refused))
         self.mix = traffic.load_mix(self.spec["traffic"], root)
         self.checks = load_json(root, "checks", f"{name}.json")
         self.metrics = {}
@@ -138,21 +176,26 @@ class Cell:
 # -- what the window keeps for the check ------------------------------------
 
 class Capture:
-    """Wraps the merges' DD entry (`dafs_tpu_torch.dd.solve_by_dd_batch`)
-    and the structure decode (`pipeline.Dafs._decode_structure`) for the
-    family in flight: each DD layer's problems, solutions, (iterations,
-    violations) and host span, and the last decode's input and structure
-    (the final one's: `SS_cons`).  It keeps references and copies nothing."""
+    """Wraps the merges' DD entry (`dafs_tpu_torch.dd.solve_by_dd_batch`),
+    the structure decode (`pipeline.Dafs._decode_structure`) and the
+    bp-update (`pipeline.Dafs._update_bp`) for the family in flight: each DD
+    layer's problems, solutions, (iterations, violations) and host span,
+    the last decode's input and structure (the final one's: `SS_cons`), and
+    each update's input `p`, structure `ss`, `sstr`, group `aln` (its rows'
+    seq ids and masks) and output `out`.  It keeps references and copies
+    nothing."""
 
     def __init__(self):
         from dafs_tpu_torch import dd, pipeline
 
         self._undo = [(dd, "solve_by_dd_batch", dd.solve_by_dd_batch),
-                      (pipeline.Dafs, "_decode_structure", pipeline.Dafs._decode_structure)]
+                      (pipeline.Dafs, "_decode_structure", pipeline.Dafs._decode_structure),
+                      (pipeline.Dafs, "_update_bp", pipeline.Dafs._update_bp)]
         self.layers: list = []
         self.spans: list = []
         self.final = None
-        solve_orig, decode_orig = self._undo[0][2], self._undo[1][2]
+        self.updates: list = []
+        solve_orig, decode_orig, update_orig = (orig for _, _, orig in self._undo)
 
         def solve(problems, **kw):
             stats = kw.get("stats")
@@ -168,12 +211,20 @@ class Capture:
             self.final = (p, sstr)
             return ss, sstr
 
+        def update(dafs, p, ss, sstr, aln, use_alifold):
+            out = update_orig(dafs, p, ss, sstr, aln, use_alifold)
+            self.updates.append(dict(p=p, ss=ss, sstr=sstr, aln=aln, out=out))
+            return out
+
         dd.solve_by_dd_batch = solve
         pipeline.Dafs._decode_structure = decode
+        pipeline.Dafs._update_bp = update
 
     def take(self):
-        out = (self.layers, self.spans, self.final)
-        self.layers, self.spans, self.final = [], [], None
+        """(DD layers, DD spans, final decode's (input, structure), updates)
+        of the family in flight; starts the next."""
+        out = (self.layers, self.spans, self.final, self.updates)
+        self.layers, self.spans, self.final, self.updates = [], [], None, []
         return out
 
     def close(self):
@@ -339,7 +390,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
                     break
                 continue
             t1 = time.perf_counter()
-            layers, spans, final = capture.take()
+            layers, spans, final, updates = capture.take()
             res = d.result
             fams.append(Family(
                 n=len(records), residues=sum(len(s) for _, s in records),
@@ -349,8 +400,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
                 dd_spans=spans))
             sample.offer(len(fams) - 1, fams[-1].residues, lambda: dict(
                 records=records, bp=d.bp, mp=d.mp, sim=res["similarity"], tree=d.tree,
-                rows=res["rows"], ss_cons=res["ss_cons"], layers=layers, final_p=final[0]))
-            del d, res, layers
+                rows=res["rows"], ss_cons=res["ss_cons"], layers=layers, final_p=final[0],
+                updates=updates))
+            del d, res, layers, updates
             if t1 - t_win >= seconds and (trace or families.at_pass_end):
                 break
     finally:
@@ -390,7 +442,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         for k, v in check.check_family(ref, cap).items():
             numbers[k] = max(numbers.get(k, -math.inf), v)
         print(f"check: family of {len(cap['records'])} ({sum(len(s) for _, s in cap['records'])}"
-              f" nt): merges compared {cap['compared']['merges']}, DD merges replayed "
+              f" nt): merges compared {cap['compared']['merges']}, bp-updates compared "
+              f"{cap['compared']['updates']}, DD merges replayed "
               f"{cap['compared']['replayed']}; seconds {cap['compared'].get('seconds')}; "
               f"{time.perf_counter() - t_check:.1f} s", file=log)
     ok, lines = check.judge(numbers, spec["limits"]) if numbers else (False, ["no family finished"])

@@ -5,9 +5,11 @@ computes for one family, stage by stage, from the same records.
 one configuration.  `posteriors(seqs)` gives the fold's and the aligner's
 posteriors after PCT and the similarity matrix; `merge_inputs` the averaged
 (and consensus-mixed) inputs of one merge; `final_p` the final structure's
-input; `replay_dd` the device DD loop on a layer of merges; `decode` the
-final structure of an input.  Every
-function reads only its arguments and the parameter files.
+input; `update_bp` the bp-update of an input (`--bp-update`,
+`--bp-update1`), which both of those take where the options ask for it;
+`replay_dd` the device DD loop on a layer of merges; `decode` the
+structure of an input.  Every function reads only its arguments and the
+parameter files.
 
 The fold and align models are found by name, one file each under the
 benchmark folder's `reference/`, so that a configuration of other models
@@ -17,7 +19,9 @@ comes as added files:
   unthresholded (len, len) float32 posteriors, and `CONSENSUS_LEAVES`,
   whether a group of one sequence takes its consensus from them (where
   `Dafs.run` hands them over: McCaskill under the consensus's own
-  parameters);
+  parameters); optionally `constrained_posteriors(seqs, constraints,
+  device)`, each sequence's posteriors under its constraint string, cut at
+  CUTOFF (the bp-update's re-fold; a configuration with bp-update needs it);
 - `align/<align_model>.py`: `posteriors(seqs1, seqs2, th_a, device)`, each
   pair's match posteriors, entries kept above `th_a`.
 """
@@ -37,6 +41,8 @@ from portbench.reference.typedefs import CUTOFF, AlnRow
 
 
 PORTBENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the bracket of each level of `th_s` in a decoded structure (src/dafs.cpp)
+LEFT_BRACKETS = "([{<ABCDEFGHIJKLMNOPQRSTUVWXYZ"
 
 
 def model_file(kind: str, name: str, root: str = PORTBENCH) -> str:
@@ -140,15 +146,91 @@ class Reference:
             ali = self.alifold.consensus_bp(aln, recs, self.device) if use_alifold else None
         return projection.average_basepairing_probability(bp, aln, ali)
 
-    def merge_inputs(self, bp, mp, recs, aln1, aln2):
-        """(p_x, p_y, p_z) of the merge of `aln1` and `aln2`."""
-        use = self.o["use_alifold"]
-        return (self._avg_bp(bp, aln1, recs, use), self._avg_bp(bp, aln2, recs, use),
-                projection.average_matching_probability(mp, aln1, aln2))
+    def _input(self, bp, recs, aln, use_alifold, update, th, under):
+        """(the input made of the group `aln`, its average before the
+        bp-update): the average twice without `update`; else its bp-update
+        under `under` ((ss, sstr), the structure the program's update ran
+        under) or, where that is None, under the reference's own decode of
+        the average at `th`."""
+        avg = self._avg_bp(bp, aln, recs, use_alifold)
+        if not update:
+            return avg, avg
+        if under is None:
+            ss = self.decode(avg, th)
+            under = ss, brackets(ss)
+        return self.update_bp(avg, *under, aln, recs, use_alifold), avg
 
-    def final_p(self, bp, recs, aln):
-        """The final structure's input: the consensus is always mixed in."""
-        return self._avg_bp(bp, aln, recs, True)
+    def merge_inputs(self, bp, mp, recs, aln1, aln2, under=(None, None)):
+        """((p_x, p_y, p_z), (a_x, a_y)) of the merge of `aln1` and `aln2`:
+        the DD's inputs, and each side's average before its bp-update
+        (`use_bp_update`; p_x and p_y themselves without it), the update of
+        side k made under `under[k]` (see `_input`).  The consensus calls go
+        x, x's update, y, y's update, as in `Dafs._merge_inputs`: the
+        pf-scale warm start is shared by a shape's constrained and
+        unconstrained calls."""
+        upd = self.o.get("use_bp_update", False)
+        sides = [self._input(bp, recs, aln, self.o["use_alifold"], upd, self.o["th_s"][0], u)
+                 for aln, u in zip((aln1, aln2), under)]
+        p_z = projection.average_matching_probability(mp, aln1, aln2)
+        return (sides[0][0], sides[1][0], p_z), (sides[0][1], sides[1][1])
+
+    def final_p(self, bp, recs, aln, under=None):
+        """(the final decode's input, its average before the bp-update
+        (`use_bp_update1`; the input itself without it)): the consensus is
+        always mixed in; the update is made under `under` (see `_input`)."""
+        return self._input(bp, recs, aln, True, self.o.get("use_bp_update1", False),
+                           self.o["th_s1"][0], under)
+
+    def update_bp(self, p, ss, sstr, aln, recs, use_alifold: bool) -> np.ndarray:
+        """The bp-update of `p` (`Dafs._update_bp`, src/dafs.cpp:609-711):
+        every sequence of the group `aln` folded again under the structure
+        (`ss`, `sstr`) decoded from `p`, once per bracket level of `th_s`
+        (the fold reference's `constrained_posteriors`), and the results
+        averaged; with the consensus, its constrained runs averaged in too."""
+        L = int(aln[0].mask.shape[0])
+        N = len(aln)
+        plevel = len(self.o["th_s"])
+        out = np.zeros((L, L), dtype=np.float32)
+        # every (sequence, constraint) re-fold goes into one batched call
+        tasks: list[tuple[int, np.ndarray, str]] = []
+        for row in aln:
+            s = row.seq_id
+            ls = len(recs[s].seq)
+            idx = np.nonzero(row.mask)[0]
+            rev = np.full(L, -1, dtype=np.int64)
+            rev[idx] = np.arange(len(idx))
+            for plv in range(plevel):
+                con = ["?"] * ls
+                for i in range(L):
+                    if ss[i] >= 0 and rev[i] >= 0 and rev[ss[i]] >= 0:
+                        if sstr[i] == LEFT_BRACKETS[plv]:
+                            con[rev[i]] = "("
+                            con[rev[ss[i]]] = ")"
+                        else:
+                            con[rev[i]] = con[rev[ss[i]]] = "."
+                tasks.append((s, idx, "".join(con)))
+        with self._precision():
+            bps = self.fold.constrained_posteriors(
+                [recs[s].seq for s, _, _ in tasks], [c for _, _, c in tasks], self.device)
+        for (s, idx, _), bp in zip(tasks, bps):
+            out[np.ix_(idx, idx)] += np.float32(bp / np.float32(N))
+        if use_alifold:
+            for plv in range(plevel):
+                con = ["?"] * L
+                for i in range(L):
+                    if ss[i] >= 0:
+                        if sstr[i] == LEFT_BRACKETS[plv]:
+                            con[i] = "("
+                            con[ss[i]] = ")"
+                        else:
+                            con[i] = con[ss[i]] = "."
+                with self._precision():
+                    out += self.alifold.consensus_bp(aln, recs, self.device, "".join(con))
+            iu = np.triu_indices(L, 1)
+            out[iu] = np.float32(out[iu] / np.float32(2.0))
+        out[np.tril_indices(L, 0)] = 0.0
+        out[out <= CUTOFF] = 0.0
+        return out
 
     def replay_dd(self, problems: list, t_cap: int | None = None) -> list:
         """The device DD of one layer of merges, as `dd.solve_by_dd_batch`
@@ -164,7 +246,7 @@ class Reference:
         return [(*sol, *st) for sol, st in zip(sols, stats)]
 
     def decode(self, p: np.ndarray, th: float) -> np.ndarray:
-        """The final decode's structure of `p` (`Dafs._decode_structure`):
+        """The Nussinov structure of `p` at `th` (`Dafs._decode_structure`):
         ss[i] = j for every pair, -1 elsewhere."""
         L = p.shape[0]
         P = -(-L // 32) * 32

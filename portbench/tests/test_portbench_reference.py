@@ -21,7 +21,7 @@ def _port(config):
         d, _ = harness._family_run(config, RECORDS, "cpu")
     finally:
         capture.close()
-    layers, _, final = capture.take()
+    layers, _, final, _ = capture.take()
     return d, layers, final
 
 
@@ -42,16 +42,17 @@ def test_reference_equals_the_plain_port(conf):
     for merges, (problems, sols, stats) in zip(sched, layers):
         for m, prob in zip(merges, problems):
             l, r = d.tree[m][1]
-            want = ref.merge_inputs(post["bp"], post["mp"], recs,
-                                    F.sub_alignment(rows, F.leaves_under(d.tree, l)),
-                                    F.sub_alignment(rows, F.leaves_under(d.tree, r)))
+            want, _ = ref.merge_inputs(post["bp"], post["mp"], recs,
+                                       F.sub_alignment(rows, F.leaves_under(d.tree, l)),
+                                       F.sub_alignment(rows, F.leaves_under(d.tree, r)))
             for g, w in zip(prob[:3], want):
                 assert np.array_equal(g, w)
         for sol, st, want in zip(sols, stats, ref.replay_dd(problems)):
             assert np.float32(sol[0]) == np.float32(want[0])
             assert all(np.array_equal(a, b) for a, b in zip(sol[1:4], want[1:4]))
             assert tuple(st) == tuple(want[4:])
-    p = ref.final_p(post["bp"], recs, F.sub_alignment(rows, F.leaves_under(d.tree, len(d.tree) - 1)))
+    p, _ = ref.final_p(post["bp"], recs,
+                       F.sub_alignment(rows, F.leaves_under(d.tree, len(d.tree) - 1)))
     assert np.array_equal(p, final_p)
     assert F.brackets(ref.decode(p, 0.2)) == d.result["ss_cons"]
 
